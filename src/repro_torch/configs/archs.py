@@ -1,0 +1,61 @@
+"""The architectures the port serves, and ``reduced()`` smoke variants: a
+copy of the reference's ``configs/archs.py`` entries the port runs."""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from .base import AttentionConfig, ModelConfig, moe_ffn
+
+_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+
+
+def register(name: str):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch '{name}'; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]()
+
+
+@register("granite-moe-3b-a800m")
+def granite_moe() -> ModelConfig:
+    """[moe] IBM granite 3.0 MoE: 40 experts, top-8, GLU experts. hf:ibm-granite."""
+    return ModelConfig(
+        name="granite-moe-3b-a800m", family="moe", n_layers=32, d_model=1536,
+        vocab_size=49155,
+        attention=AttentionConfig(n_heads=24, n_kv_heads=8, head_dim=64),
+        ffn=moe_ffn(n_experts=40, expert_size=512, k=8,
+                    selector_activation="softmax", renormalize=True,
+                    glu_experts=True, reg_kind="switch", reg_gamma=0.01,
+                    dispatch="einsum"),
+        tie_embeddings=True,
+    )
+
+
+def reduced(name: str) -> ModelConfig:
+    """A tiny config of the same family as ``name`` for CPU smoke tests (the
+    reference's rules for the families registered here)."""
+    cfg = get_config(name)
+    kw = dict(
+        n_layers=min(cfg.n_layers, 3 if not cfg.pattern else len(cfg.pattern)),
+        d_model=64, vocab_size=256, max_seq_len=512,
+    )
+    if cfg.attention.n_heads:
+        kw["attention"] = AttentionConfig(
+            n_heads=4,
+            n_kv_heads=2 if cfg.attention.n_kv_heads < cfg.attention.n_heads else 4,
+            head_dim=16, kind=cfg.attention.kind, window=32,
+            qk_norm=cfg.attention.qk_norm, kv_chunk=64)
+    f = cfg.ffn
+    if f.kind in ("sigma_moe", "switch", "sbase", "noisy_topk"):
+        kw["ffn"] = moe_ffn(4, 32, min(f.k, 2),
+                            selector_activation=f.selector_activation,
+                            renormalize=f.renormalize, glu_experts=f.glu_experts,
+                            n_shared_experts=f.n_shared_experts, reg_kind=f.reg_kind,
+                            reg_gamma=f.reg_gamma, dispatch="sort")
+    return cfg.override(**kw)

@@ -1,0 +1,121 @@
+"""Selection -> planned execution of the MoE expert MLP (the reference's
+``core/dispatch.py``, sort dispatch only).
+
+``expert_mlp`` runs one MoE layer's experts at a fixed selection. Within
+the "sort" dispatch (the paper's dropless CVMM) the rung comes from
+``resolve_impl``:
+
+  pallas         the unfused planned rung: one CvmmPlan per call, then the
+                 K4 grouped-GEMM kernel for w1 (w1g) and w2. "auto" on CUDA.
+  ragged / ref   plain grouped matmuls, the stand-ins for XLA's ragged_dot
+                 and the one-hot oracle; "auto" on the CPU. CPU only.
+  pallas_fused   the fused K1/K2 kernels: not ported yet, raises on CUDA
+                 (on the CPU it runs the plain unfused rung).
+
+Serving installs a decode provider (``set_decode_provider``) that claims
+small calls and runs them on a cached routing-free DecodePlan
+(``ops.moe_mlp_decode``). The reference also pins the sort path to
+replicated under an active device mesh; the port has no mesh yet, so that
+check is absent. The "einsum" and "shard_map" dispatches are not ported.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from ..common import act_fn
+from ..configs.base import FFNConfig
+from ..kernels import ops as kops
+from .routing import SelectionInfo
+
+
+def resolve_impl(cfg: FFNConfig, device) -> str:
+    """Per-layer impl knob: cfg.impl, with "auto" deferring to the device's
+    default rung."""
+    return kops.default_impl(device) if cfg.impl == "auto" else cfg.impl
+
+
+def _expert_ffn(cfg: FFNConfig, h_pre: torch.Tensor, h_gate) -> torch.Tensor:
+    u = act_fn(cfg.activation)(h_pre)
+    if cfg.glu_experts:
+        u = u * h_gate
+    return u
+
+
+def _sort_path(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
+               info: SelectionInfo, e: int) -> torch.Tensor:
+    """Dropless grouped matmul (paper Eq. 11): flatten (token, k) pairs,
+    stable-sort by expert, grouped matmuls, gate-weighted scatter-add back
+    to the tokens."""
+    n, d = xf.shape
+    k = cfg.k
+    impl = resolve_impl(cfg, xf.device)
+    if impl in ("einsum", "dense"):
+        impl = "ragged"
+    on_cuda = xf.device.type == "cuda"
+    if impl.startswith("pallas_fused"):
+        if on_cuda:
+            raise NotImplementedError(
+                "impl='pallas_fused' needs the fused K1/K2 kernels, which "
+                "come with the port's training slice; use 'pallas'")
+        impl = "pallas"
+    if on_cuda and not impl.startswith("pallas"):
+        raise NotImplementedError(
+            f"impl={impl!r} is a plain CPU rung; on CUDA use 'pallas'")
+
+    w1 = params["we1"].to(xf.dtype)
+    w2 = params["we2"].to(xf.dtype)
+    w1g = params["we1g"].to(xf.dtype) if cfg.glu_experts else None
+    tok = torch.arange(n, device=xf.device).repeat_interleave(k)
+    g_flat = info.gates.reshape(-1)
+
+    if impl.startswith("pallas"):
+        plan = kops.make_moe_plan(info.idx, e)
+        src = tok[plan.perm]
+        x_sorted = xf[src]
+        h = kops.cvmm_planned(x_sorted, plan, w1)
+        hg = kops.cvmm_planned(x_sorted, plan, w1g) if cfg.glu_experts else None
+        y_sorted = kops.cvmm_planned(_expert_ffn(cfg, h, hg), plan, w2)
+        y_sorted = y_sorted * g_flat[plan.perm][:, None].to(y_sorted.dtype)
+        return torch.zeros_like(xf).index_add_(0, src, y_sorted)
+
+    e_flat = info.idx.reshape(-1).to(torch.int64)
+    perm = torch.argsort(e_flat, stable=True)
+    src = tok[perm]
+    x_sorted = xf[src]
+    group_sizes = torch.bincount(e_flat, minlength=e)
+    h = kops.cvmm(x_sorted, group_sizes, w1, impl=impl)
+    hg = kops.cvmm(x_sorted, group_sizes, w1g, impl=impl) if cfg.glu_experts else None
+    y_sorted = kops.cvmm(_expert_ffn(cfg, h, hg), group_sizes, w2, impl=impl)
+    y_sorted = y_sorted * g_flat[perm][:, None].to(y_sorted.dtype)
+    return torch.zeros_like(xf).index_add_(0, src, y_sorted)
+
+
+# Serving-layer decode fast path: the engine (repro_torch.serving) installs a
+# provider while it runs; a provider that claims a call returns y, one that
+# declines returns None and the regular sort path runs. Inference only.
+_DECODE_PROVIDER = None
+
+
+def set_decode_provider(fn) -> None:
+    """Install (or with ``None`` remove) the decode fast-path provider:
+    ``fn(params, xf, cfg, info, e) -> Optional[y]``."""
+    global _DECODE_PROVIDER
+    _DECODE_PROVIDER = fn
+
+
+def expert_mlp(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
+               info: SelectionInfo, e: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Planned execution of one MoE layer's expert MLP at a fixed selection.
+    Returns (y (N, d), dropped fraction)."""
+    if cfg.dispatch != "sort":
+        raise NotImplementedError(
+            f"dispatch={cfg.dispatch!r}: the port runs the dropless 'sort' "
+            "dispatch only")
+    zero = torch.zeros((), device=xf.device)
+    if _DECODE_PROVIDER is not None:
+        y = _DECODE_PROVIDER(params, xf, cfg, info, e)
+        if y is not None:
+            return y, zero
+    return _sort_path(params, xf, cfg, info, e), zero

@@ -1,0 +1,67 @@
+"""Expert selection (the reference's ``core/routing.py``, inference subset).
+
+``select_experts(logits, cfg) -> SelectionInfo`` with ``gates``/``idx``
+(N, K) and the full selection distribution for the regularizers.
+
+Top-k breaks ties toward the lower expert index, as ``jax.lax.top_k`` does:
+a stable descending sort, then a slice. ``torch.topk`` promises no order
+among equal values, and bf16 softmax scores over 40 experts tie often.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..configs.base import FFNConfig
+
+
+class SelectionInfo(NamedTuple):
+    probs: torch.Tensor     # (N, E) softmax(W3 x)
+    sel: torch.Tensor       # (N, E) the selector activation output
+    idx: torch.Tensor       # (N, K)
+    gates: torch.Tensor     # (N, K)
+
+
+def top_k(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries of the last axis, ties
+    toward the lower index."""
+    vals, idx = torch.sort(s, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def norm_topk(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Paper Eqs. 23-25: keep top-K of s, renormalize to sum 1."""
+    vals, idx = top_k(s, k)
+    gates = vals / (torch.sum(vals, dim=-1, keepdim=True) + 1e-9)
+    return gates, idx
+
+
+def select_experts(logits: torch.Tensor, cfg: FFNConfig, *,
+                   n_valid_experts: Optional[int] = None) -> SelectionInfo:
+    """Inference-time selection: logits (N, E_padded) = x @ W3; experts at
+    or past ``n_valid_experts`` are padding and masked out. Training-only
+    parts of the reference (noise, expert dropout) are not ported yet."""
+    n, e = logits.shape
+    k = cfg.k
+    if n_valid_experts is not None and n_valid_experts < e:
+        valid = torch.arange(e, device=logits.device) < n_valid_experts
+        logits = torch.where(valid[None, :], logits,
+                             torch.full_like(logits, -1e9))
+    probs = torch.softmax(logits, dim=-1)
+
+    act = cfg.selector_activation
+    if act == "sigmoid":
+        sel = torch.sigmoid(logits)
+    elif act in ("softmax", "softmax_pre_topk"):
+        sel = probs
+    else:
+        raise ValueError(f"unknown selector activation {act}")
+
+    if act == "softmax_pre_topk" or (act == "softmax" and cfg.renormalize):
+        gates, idx = norm_topk(sel, k)
+    else:
+        gates, idx = top_k(sel, k)
+        if cfg.renormalize:
+            gates = gates / (torch.sum(gates, dim=-1, keepdim=True) + 1e-9)
+    return SelectionInfo(probs=probs, sel=sel, idx=idx, gates=gates)
