@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--out results.json]
 
-Phases (any failure exits non-zero before the result line):
+Phases (any failure exits non-zero before the result line). 1-6 are the
+serving slice, 7-10 the training slice:
 
 1. the card: torch's device name and nvidia-smi's name and power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
@@ -18,7 +19,24 @@ Phases (any failure exits non-zero before the result line):
    tokens against contiguous-cache greedy decoding on the reduced config;
 6. each kernel timed with CUDA events beside its bound, its plain version
    and one PyTorch library call for the same function;
-7. one ``{"kernels": [...]}`` JSON line, then the device line last.
+7. the training kernels (K1 in its four variants, K2, K3 in its three)
+   against their plain versions at wt103-47m-moe's training shapes (batch
+   32 x 257 tokens, top-4 of 16 experts), in bf16 and float32, with an
+   expert that gets no rows and all-sentinel slack tiles;
+8. one full-width training step with the kernels against the same step with
+   the plain versions and the same expert choices, gradient leaf by leaf,
+   and the first 3 losses: in bf16 with the depth cut to 2 and in float32
+   at full depth, each against a fixed tolerance; in bf16 at full depth,
+   against float32 plain versions, beside the bf16 plain versions (cuBLAS)
+   against the same float32 run;
+9. the training main path: ``python -m repro_torch.launch.train --arch
+   wt103-47m-moe --steps 30 --batch 32 --seq 256`` at full width and depth,
+   in process; the loss must be finite and fall, and every step must launch
+   exactly 2 K1, 1 K2, 2 K3 and 1 K4 per MoE layer;
+10. the step's time, tokens/s, peak memory and a profile (device-busy
+    share, top kernels), and each training kernel timed beside its bound,
+    its plain version and a ``torch.bmm`` yardstick;
+11. one ``{"kernels": [...]}`` JSON line, then the device line last.
 
 With ``--out``, the full results (every phase's numbers and the ptxas
 reports) are also written there as JSON.
@@ -43,6 +61,18 @@ TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 # float32: the kernel and cuBLAS sum K = 512..1536 products in different
 # orders; bf16: one bf16 ulp of the rounded result, the reference's serving
 # tolerance (tests/test_serving.py).
+GRAD_TOL = {"bfloat16": 2e-2, "float32": 2e-3}
+# Training step, kernels against plain versions: per-leaf relative gradient
+# error ||g_k - g_p|| / ||g_p||, and the relative loss difference. bf16: the
+# two paths round the same intermediates, but their sums run in other
+# orders, so a bf16 rounding may land one ulp (2^-8 relative) apart.
+# float32: a few times the sound runs' worst leaf (3.9e-4 on an H100), which
+# float32 scatters summed in another atomic order reach.
+YARDSTICK = 1.5
+# bf16 at full depth: the kernels' worst and median leaf error against
+# float32 plain versions may each be at most this many times the bf16 plain
+# versions' (cuBLAS) against the same float32 run.
+TRAIN = dict(arch="wt103-47m-moe", batch=32, seq=256, steps=30)
 
 
 def fail(msg: str) -> None:
@@ -287,7 +317,10 @@ def main() -> None:
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     results["timings"] = timings
 
-    # ------------------------------------------------------------- 7. report
+    # ------------------------------------------------ 7-10. the training slice
+    train = _training_slice(args.seed, dev, gen, K, results)
+
+    # ------------------------------------------------------------ 11. report
     def row(kernel, shape, source, replaces):
         t = next(t for t in timings if t["kernel"] == kernel and t["shape"] == shape
                  and t["dtype"] == "bfloat16")
@@ -295,11 +328,14 @@ def main() -> None:
                 "launches": launches[kernel], "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                "shape": shape, "dtype": "bfloat16"}
+                "shape": shape, "dtype": "bfloat16", "path": "serving"}
 
+    k4 = row("cvmm", f"M_pad 5120 {D}->{G} E {E}", "src/repro_torch/kernels/csrc/cvmm.cu",
+             "src/repro/kernels/cvmm.py:241")
+    k4["launches_training"] = train["launches"]["cvmm"]
     line = {"kernels": [
-        row("cvmm", f"M_pad 5120 {D}->{G} E {E}", "src/repro_torch/kernels/csrc/cvmm.cu",
-            "src/repro/kernels/cvmm.py:241"),
+        train["rows"]["fused_w1"], train["rows"]["fused_w2"],
+        train["rows"]["dw_streamed"], k4,
         row("gather_rows", f"n 8 d {D} into 128 rows",
             "src/repro_torch/kernels/csrc/gather_rows.cu",
             "src/repro/kernels/cvmm.py:621")]}
@@ -309,6 +345,431 @@ def main() -> None:
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
+
+
+def _training_slice(seed, dev, gen, K, results):
+    """Phases 7-10: the training slice's kernels, one step kernels vs plain,
+    the 30-step main path, and its measurements. Returns the launch counts
+    of the main path and the report rows of K1, K2 and K3."""
+    import numpy as np
+    import torch
+    from repro_torch.common import map_leaves
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.core import routing
+    from repro_torch.data import DataIterator, make_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    cfg = get_config(TRAIN["arch"])
+    n, k, E, d, G = TRAIN["batch"] * (TRAIN["seq"] + 1), cfg.ffn.k, cfg.ffn.n_experts, \
+        cfg.d_model, cfg.ffn.expert_size
+
+    # ------------------------------------- 7. training kernels vs plain versions
+    def draw_plan(skip=None):
+        pool = torch.tensor([e for e in range(E) if e != skip], device=dev)
+        keys = torch.rand((n, len(pool)), generator=gen, device=dev)
+        idx = pool[torch.argsort(keys, dim=1)[:, :k]]
+        return ops.make_moe_plan(idx, E, torch.rand((n, k), generator=gen, device=dev))
+
+    empty = E // 2
+    plans = {"all experts": draw_plan(), "one expert empty": draw_plan(skip=empty)}
+    for name, plan in plans.items():
+        slack = (plan.row_src.view(-1, 128) >= n).all(1).sum().item()
+        print(f"[7] plan '{name}': N {n} x top-{k}, E {E}, M_pad {plan.m_pad}, "
+              f"{plan.m_pad // 128} tiles of which {slack} all-sentinel; rows per "
+              f"expert {plan.group_sizes.tolist()}")
+        if not slack:
+            fail("the plan has no all-sentinel slack tile")
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    base = {"x": ops._pad_lane(rnd(n, d), 1), "dy": ops._pad_lane(rnd(n, d), 1),
+            "w1": ops._pad_w(rnd(E, d, G, scale=d ** -0.5)),
+            "w1g": ops._pad_w(rnd(E, d, G, scale=d ** -0.5)),
+            "w2": ops._pad_w(rnd(E, G, d, scale=G ** -0.5))}
+    base["w2t"] = base["w2"].transpose(1, 2).contiguous()
+
+    def inputs(dt, plan):
+        # Every checked output is O(1), so one tolerance means the same for
+        # every kernel: weights carry (reduction length)^-0.5, and so do the
+        # cotangents that K3 sums over an expert's ~n*k/E rows (unit-scale
+        # cotangents make sums near 45, whose float32 summation orders
+        # differ by more than 1e-4).
+        t = {key: v.to(dt) for key, v in base.items()}
+        t["u"] = rnd(plan.m_pad, base["w1"].shape[2]).to(dt)
+        t["dh"] = rnd(plan.m_pad, base["w1"].shape[2]).to(dt)
+        rows = (n * k / E) ** -0.5
+        t["dh_dw"] = (t["dh"].float() * rows).to(dt)
+        t["dy_dw"] = (base["dy"] * rows).to(dt)
+        return t
+
+    cases = []      # (name, kernel, plan key, fn(t, plan) -> (kernel, plain))
+    for glu in (False, True):
+        for save in (False, True):
+            for act in ("relu", "identity"):
+                variant = "w1" + ("_glu" if glu else "") + ("_save" if save else "")
+                cases.append((f"fused_w1 {variant} {act}", "fused_w1", "all experts",
+                              lambda t, p, glu=glu, save=save, act=act: [
+                                  f(t["x"], p.row_src, p.tile_expert, t["w1"],
+                                    t["w1g"] if glu else None, act=act, save_preact=save)
+                                  for f in (K.fused_w1, K.fused_w1_plain)]))
+    cases.append(("fused_w1 t0 = dy w2^T identity, one expert empty", "fused_w1",
+                  "one expert empty", lambda t, p: [
+                      f(t["dy"], p.row_src, p.tile_expert, t["w2t"], None, act="identity")
+                      for f in (K.fused_w1, K.fused_w1_plain)]))
+    cases.append(("cvmm dX = dh w1^T", "cvmm", "all experts", lambda t, p: [
+        f(t["dh"], p.tile_expert, t["w1"].transpose(1, 2).contiguous())
+        for f in (K.cvmm, K.cvmm_plain)]))
+    cases.append(("fused_w2", "fused_w2", "all experts", lambda t, p: [
+        f(t["u"], p.tile_expert, t["w2"], p.gate_tiles.reshape(-1))
+        for f in (K.fused_w2, K.fused_w2_plain)]))
+    for variant, stream_x, gated in (("stream_x (dW1)", True, False),
+                                     ("stream_g (dW2, no gate)", False, False),
+                                     ("stream_g gated (dW2)", False, True)):
+        cases.append((f"dw_streamed {variant}, one expert empty", "dw_streamed",
+                      "one expert empty", lambda t, p, sx=stream_x, gt=gated: [
+                          f(t["x"] if sx else t["u"], t["dh_dw"] if sx else t["dy_dw"],
+                            p.row_src, p.tile_expert, E, stream_x=sx,
+                            gate=p.gate_tiles.reshape(-1) if gt else None)
+                          for f in (K.dw_streamed, K.dw_streamed_plain)]))
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[1]
+        tens = {key: inputs(dt, plan) for key, plan in plans.items()}
+        for name, kernel, pkey, fn in cases:
+            got, want = fn(tens[pkey], plans[pkey])
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            differ = (sum(int((a != b).sum()) for a, b in zip(got, want))
+                      / sum(a.numel() for a in got))
+            # K3's outputs are float32 sums of identical operands in either
+            # input type, so they get the float32 tolerance.
+            tol = TOL["float32" if kernel == "dw_streamed" else dn]
+            ok = all(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol)
+                     for a, b in zip(got, want)) and len(got) == len(want)
+            if kernel == "dw_streamed":
+                ok = ok and bool((got[0][empty] == 0).all())
+            print(f"[7] {name} {dn}: max_abs_err {err:.3g} (tol {tol}), "
+                  f"{100 * differ:.3f}% of elements differ {'ok' if ok else 'BAD'}")
+            if not ok:
+                fail(f"{name} disagrees with its plain version in {dn}")
+            errs[(name, dn)] = err
+        del tens
+    results["phase7"] = {f"{a} {b}": v for (a, b), v in errs.items()}
+
+    # ------------------------- 8. one full-width step: kernels vs plain versions
+    # The plain runs replay the kernel runs' expert choices, so both route
+    # every token alike and differ only in the kernels' arithmetic (left free,
+    # summation order flips the top-4 choice of tokens near a tie, which
+    # moves whole tokens between experts). The check holds each gradient leaf
+    # and the first 3 losses to GRAD_TOL in bf16 at full width with the depth
+    # cut to 2, and in float32 at full width and depth. At full depth in
+    # bf16, outputs that differ by one ulp in a few elements per kernel call
+    # grow through 16 layers forward and back into per-leaf differences
+    # above GRAD_TOL, as any two bf16 paths do; there the kernels' gradients
+    # are held against float32 plain versions on the same expert choices,
+    # with the bf16 plain versions' error against the same run as the
+    # yardstick (YARDSTICK).
+    opt = OptimizerConfig(total_steps=3)
+    stream = DataIterator(make_dataset("synthetic", cfg.vocab_size), TRAIN["batch"],
+                          TRAIN["seq"] + 1, seed=seed)
+    batches = [{"tokens": torch.as_tensor(stream.next()["tokens"], device=dev)}
+               for _ in range(3)]
+
+    def three_steps(lm):
+        """Gradients of the first batch, then 3 train steps from the same
+        initial state; returns (grads by leaf path, losses)."""
+        state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
+                                 use_mems=True, batch=TRAIN["batch"], device=dev)
+        loss, _ = lm.loss(state["params"], batches[0], train=True,
+                          gen=torch.Generator(device=dev).manual_seed(seed + 1),
+                          mems=state["mems"])
+        loss.backward()
+        grads = {}
+        map_leaves(state["params"], lambda path, p: grads.setdefault(path, p.grad.clone()))
+        step = make_train_step(lm, opt)
+        drop = torch.Generator(device=dev).manual_seed(seed + 2)
+        losses = []
+        for b in batches:
+            state, m = step(state, b, drop)
+            losses.append(float(m["loss"]))
+        return grads, losses
+
+    def compare(ga, gb):
+        """Per-leaf ||ga - gb|| / ||gb||: (worst, its leaf path, median)."""
+        errs = sorted(((torch.linalg.norm((ga[p] - gb[p]).float())
+                        / torch.linalg.norm(gb[p].float()).clamp_min(1e-30)).item(), p)
+                      for p in gb)
+        return errs[-1][0], "/".join(map(str, errs[-1][1])), errs[len(errs) // 2][0]
+
+    phase8 = {}
+    for variant, mode in ((cfg.override(n_layers=2), "fixed"),
+                          (cfg.override(dtype="float32"), "fixed"), (cfg, "yardstick")):
+        label = f"{variant.dtype}, depth {variant.n_layers}"
+        lm = build_model(variant)
+        choices = []
+        K.reset_launch_counts()
+        with pinned_routing(routing, choices, replay=False):
+            gk, lk = three_steps(lm)
+        step_launches = dict(K.LAUNCHES)
+        with plain_kernels(K), pinned_routing(routing, choices, replay=True):
+            gp, lp = three_steps(lm)
+        worst, leaf, median = compare(gk, gp)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+        tol = GRAD_TOL[variant.dtype]
+        print(f"[8] {label}, full width, {len(gp)} gradient leaves, same expert "
+              f"choices: worst relative error {worst:.3g} at {leaf}, median "
+              f"{median:.3g}; losses kernels {lk} plain {lp}, worst relative "
+              f"{loss_err:.3g} ({f'tol {tol}' if mode == 'fixed' else 'not a check'}); "
+              f"launches {step_launches}")
+        phase8[label] = {"worst_grad_rel": worst, "worst_leaf": leaf, "median": median,
+                         "losses_kernels": lk, "losses_plain": lp}
+        if not all(np.isfinite(lk)):
+            fail(f"non-finite loss {lk}")
+        if mode == "fixed" and not (worst <= tol and loss_err <= tol):
+            fail(f"{label}: the kernels' training step disagrees with the plain versions'")
+        if mode == "yardstick":
+            with plain_kernels(K), pinned_routing(routing, choices, replay=True):
+                gf, lf = three_steps(build_model(variant.override(dtype="float32")))
+            kern, lib = compare(gk, gf), compare(gp, gf)
+            print(f"[8] {label}, same expert choices, against float32 plain versions: "
+                  f"kernels worst {kern[0]:.3g} at {kern[1]}, median {kern[2]:.3g}; "
+                  f"bf16 plain versions (cuBLAS) worst {lib[0]:.3g} at {lib[1]}, median "
+                  f"{lib[2]:.3g}; limit {YARDSTICK}x the latter's worst and median; "
+                  f"float32 losses {lf}")
+            phase8[label].update(kernels_vs_f32=kern, plain_bf16_vs_f32=lib,
+                                 losses_f32=lf)
+            if not (kern[0] <= YARDSTICK * lib[0] and kern[2] <= YARDSTICK * lib[2]):
+                fail(f"{label}: the kernels' gradients stray further from float32 than "
+                     f"{YARDSTICK}x the bf16 plain versions'")
+            del gf
+            load = [torch.bincount(c.reshape(-1), minlength=E).max().item() * E / c.numel()
+                    for c in choices[:variant.n_layers]]
+            print(f"[8] {label}: rows of the busiest expert over the mean, layer by layer, "
+                  f"first batch: {[round(x, 2) for x in load]}")
+            phase8[label]["expert_load"] = load
+            with plain_kernels(K):
+                free = compare(gk, three_steps(lm)[0])
+            print(f"[8] {label}, each run choosing its own experts: worst relative "
+                  f"error {free[0]:.3g} at {free[1]}, median {free[2]:.3g} (not a check)")
+            phase8[label]["free_routing"] = free
+        del gk, gp
+    results["phase8"] = phase8
+    del lm                      # phase 9's peak memory is the trainer's own
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 9. the training main path
+    argv = ["--arch", TRAIN["arch"], "--steps", str(TRAIN["steps"]), "--batch",
+            str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--seed", str(seed),
+            "--device", dev.type]
+    print(f"[9] python -m repro_torch.launch.train {' '.join(argv)}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    out = train_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    layers = cfg.n_layers
+    want = {"fused_w1": 2 * layers, "fused_w2": layers, "dw_streamed": 2 * layers,
+            "cvmm": layers, "gather_rows": 0}
+    bad_steps = [i for i, l in enumerate(out["launches"]) if l != want]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"[9] launches {launches}; per step {out['launches'][-1]} (expected {want}); "
+          f"steps off that count: {bad_steps}")
+    print(f"[9] loss mean of the first 5 steps {first:.4f}, of the last 5 {last:.4f}")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    if not last < first:
+        fail("the training loss did not fall")
+    if bad_steps:
+        fail(f"training steps {bad_steps} did not run every MoE layer on the kernels")
+
+    # --------------------------------------------------------- 10. measurements
+    steady = out["step_s"][5:]
+    step_s = float(np.mean(steady))
+    tok_s = out["tokens_per_step"] / step_s
+    print(f"[10] step {1e3 * step_s:.2f} ms (mean of steps 5-{TRAIN['steps'] - 1}, "
+          f"min {1e3 * min(steady):.2f}, max {1e3 * max(steady):.2f}); "
+          f"{tok_s:.0f} tokens/s; max_memory_allocated {peak / 2**30:.2f} GiB")
+    lm = build_model(cfg)
+    state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
+                             use_mems=True, batch=TRAIN["batch"], device=dev)
+    prof = _profile_train_step(lm, state, batches[0], make_train_step(lm, opt), dev)
+    timings = _time_training_kernels(K, plans["all experts"], inputs(torch.bfloat16,
+                                     plans["all experts"]), n, d, G, E, errs)
+    results["training"] = {"losses": losses, "step_s": out["step_s"], "tokens_per_s": tok_s,
+                           "max_memory_allocated": peak, "launches": launches,
+                           "launches_per_step": out["launches"][-1], "profile": prof,
+                           "timings": timings, "n_params": out["n_params"]}
+
+    src = "src/repro_torch/kernels/csrc/"
+    meta = {"fused_w1": ("fused_w1 relu+h (forward)", src + "fused_w1.cu",
+                         "src/repro/kernels/cvmm.py:513"),
+            "fused_w2": ("fused_w2 (forward)", src + "fused_w2.cu",
+                         "src/repro/kernels/cvmm.py:820"),
+            "dw_streamed": ("dw_streamed stream_x (dW1)", src + "dw_streamed.cu",
+                            "src/repro/kernels/cvmm.py:730")}
+    rows = {}
+    for kernel, (case, source, replaces) in meta.items():
+        t = next(t for t in timings if t["case"] == case)
+        rows[kernel] = {"name": kernel, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[kernel],
+                        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                        "shape": t["shape"], "dtype": "bfloat16", "path": "training"}
+    return {"launches": launches, "rows": rows}
+
+
+def _profile_train_step(lm, state, batch, step, dev):
+    """One full-width training step under torch.profiler: wall time, device
+    busy share, and the kernels that take the time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, _ = step(state, batch, gen)             # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    print(f"[10] profiled training step: {wall_ms:.2f} ms wall, device busy "
+          f"{busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f}% ({n_launch} kernel launches)")
+    for e in top:
+        print(f"[10]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    ours = {}
+    for e in kernels:           # this port's kernels, by their CUDA symbols
+        name = _port_kernel(e.key)
+        if name:
+            n, ms = ours.get(name, (0, 0.0))
+            ours[name] = (n + e.count, ms + e.self_device_time_total / 1e3)
+    for name, (n, ms) in sorted(ours.items()):
+        print(f"[10]   {name}: {n} launches, {ms:.3f} ms in the step, {ms / n:.4f} ms each")
+    if busy_ms <= 0:
+        fail("the profiler saw no device time in the training step")
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernel_launches": n_launch,
+            "top": [(e.key, e.count, e.self_device_time_total / 1e3) for e in top],
+            "port_kernels": ours}
+
+
+def _port_kernel(symbol):
+    """Which of this port's bf16 kernels a profiled CUDA symbol is, or None.
+    K1, K2 and K4 are instances of row_gemm_bf16<BN, GATHER, GLU, SAVE, GATE>
+    (csrc/row_gemm.cuh): K1 gathers, K2 applies the gate, K4 does neither."""
+    if "dw_bf16" in symbol:
+        return "K3 dw_streamed"
+    if "row_gemm_bf16<" not in symbol:
+        return None
+    args = symbol.split("row_gemm_bf16<", 1)[1].split(">", 1)[0]
+    _, gather, _, _, gate = (a.strip() for a in args.split(","))
+    return ("K1 fused_w1" if gather == "true" else "K2 fused_w2" if gate == "true"
+            else "K4 cvmm")
+
+
+def _time_training_kernels(K, plan, t, n, d, g, E, errs):
+    """Each training kernel at the step's shapes (bf16), with CUDA events,
+    beside its bound, its plain version and a torch.bmm yardstick on the
+    expert-major padded layout (rows grouped per expert, each group padded
+    to the largest). Bounds count what the function needs, not the padded
+    layout the kernels work on: each input read once and each output
+    written once at its real widths (d_model ``d`` and expert size ``g``,
+    not the lane-padded K_pad), the routed rows only (not the slack rows of M_pad), and the
+    products of the routed rows over ``d``."""
+    import torch
+
+    m_pad, rows = plan.m_pad, int(plan.group_sizes.sum())
+    k_pad = t["w1"].shape[1]
+    te, rs, gate = plan.tile_expert, plan.row_src, plan.gate_tiles.reshape(-1)
+    cap = -(-int(plan.group_sizes.max()) // 128) * 128
+    valid = rs < n
+
+    def expert_major(a_pad):
+        """(M_pad, W) plan rows -> (E, cap, W), routed rows only."""
+        out = a_pad.new_zeros((E, cap, a_pad.shape[1]))
+        e_of_row = te.long().repeat_interleave(128)
+        first = torch.searchsorted(te.long(), torch.arange(E, device=te.device))
+        pos = torch.arange(m_pad, device=te.device) - first[e_of_row] * 128
+        keep = valid & (pos < cap)
+        out[e_of_row[keep], pos[keep]] = a_pad[keep]
+        return out
+
+    xg = K.gather_rows_plain(t["x"], rs)
+    dyg = K.gather_rows_plain(t["dy"], rs)
+    xe, dye = expert_major(xg), expert_major(dyg)
+    ue, dhe = expert_major(t["u"]), expert_major(t["dh"])
+    w1t = t["w1"].transpose(1, 2).contiguous()
+    b = 2                       # bf16 bytes
+    tok = n * d * b             # x or dy, unsorted: every token once
+    routed_g = rows * g * b     # u, h, t0 or dh: one row per routed row
+    routed_d = rows * d * b     # y or dX before the scatter
+    w_bf16, w_f32 = E * d * g * b, E * d * g * 4
+    idx = rows * 4 + te.numel() * 4     # row_src of the routed rows, tile_expert
+    gates = rows * 4
+    flops = 2 * rows * d * g
+    specs = [
+        ("fused_w1 relu+h (forward)",
+         lambda: K.fused_w1(t["x"], rs, te, t["w1"], act="relu", save_preact=True),
+         lambda: K.fused_w1_plain(t["x"], rs, te, t["w1"], act="relu", save_preact=True),
+         lambda: torch.bmm(xe, t["w1"]),
+         tok + w_bf16 + 2 * routed_g + idx, ("fused_w1 w1_save relu", "bfloat16")),
+        ("fused_w1 identity (t0 = dy w2^T)",
+         lambda: K.fused_w1(t["dy"], rs, te, t["w2t"], act="identity"),
+         lambda: K.fused_w1_plain(t["dy"], rs, te, t["w2t"], act="identity"),
+         lambda: torch.bmm(dye, t["w2t"]),
+         tok + w_bf16 + routed_g + idx,
+         ("fused_w1 t0 = dy w2^T identity, one expert empty", "bfloat16")),
+        ("fused_w2 (forward)",
+         lambda: K.fused_w2(t["u"], te, t["w2"], gate),
+         lambda: K.fused_w2_plain(t["u"], te, t["w2"], gate),
+         lambda: torch.bmm(ue, t["w2"]),
+         routed_g + w_bf16 + routed_d + gates + te.numel() * 4, ("fused_w2", "bfloat16")),
+        ("dw_streamed stream_x (dW1)",
+         lambda: K.dw_streamed(t["x"], t["dh"], rs, te, E, stream_x=True),
+         lambda: K.dw_streamed_plain(t["x"], t["dh"], rs, te, E, stream_x=True),
+         lambda: torch.bmm(xe.transpose(1, 2), dhe),
+         tok + routed_g + w_f32 + idx,
+         ("dw_streamed stream_x (dW1), one expert empty", "bfloat16")),
+        ("dw_streamed stream_g gated (dW2)",
+         lambda: K.dw_streamed(t["u"], t["dy"], rs, te, E, stream_x=False, gate=gate),
+         lambda: K.dw_streamed_plain(t["u"], t["dy"], rs, te, E, stream_x=False, gate=gate),
+         lambda: torch.bmm(ue.transpose(1, 2), dye),
+         routed_g + tok + w_f32 + gates + idx,
+         ("dw_streamed stream_g gated (dW2), one expert empty", "bfloat16")),
+        ("cvmm (dX = dh w1^T)",
+         lambda: K.cvmm(t["dh"], te, w1t),
+         lambda: K.cvmm_plain(t["dh"], te, w1t),
+         lambda: torch.bmm(dhe, w1t),
+         routed_g + w_bf16 + routed_d + te.numel() * 4, ("cvmm dX = dh w1^T", "bfloat16")),
+    ]
+    shape = (f"N {n} x top-{rows // n}, M_pad {m_pad}, d {d} (K_pad {k_pad}), G {g}, "
+             f"E {E}")
+    out = []
+    for case, fn, plain, lib, nbytes, err_key in specs:
+        bb, bf = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
+        row = {"case": case, "shape": shape, "dtype": "bfloat16",
+               "ms": _time_ms(fn), "plain_ms": _time_ms(plain), "library_ms": _time_ms(lib),
+               "bound_ms": 1e3 * max(bb, bf), "bound_by": "bytes" if bb >= bf else "operations",
+               "bound_bytes": nbytes, "bound_flops": flops, "max_abs_err": errs[err_key]}
+        out.append(row)
+        print(f"[10] {case} bf16: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"library (torch.bmm) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+    return out
 
 
 def _leaves(tree):
@@ -322,15 +783,44 @@ def _leaves(tree):
         yield tree
 
 
+KERNELS = ("cvmm", "gather_rows", "fused_w1", "fused_w2", "dw_streamed")
+
+
 @contextmanager
-def plain_kernels(K):
-    """Route the kernel wrappers to their plain versions, for comparison."""
-    saved = K.cvmm, K.gather_rows
-    K.cvmm, K.gather_rows = K.cvmm_plain, K.gather_rows_plain
+def pinned_routing(routing, choices: list, replay: bool):
+    """Record every top-k expert choice of ``repro_torch.core.routing`` into
+    ``choices``, or replay the recorded choices in order; the gates are
+    always this run's own scores at the chosen experts."""
+    import torch
+    orig = routing.top_k
+    recorded = iter(choices)
+
+    def top_k(s, k):
+        if replay:
+            idx = next(recorded)
+            return torch.gather(s, -1, idx), idx
+        vals, idx = orig(s, k)
+        choices.append(idx)
+        return vals, idx
+
+    routing.top_k = top_k
     try:
         yield
     finally:
-        K.cvmm, K.gather_rows = saved
+        routing.top_k = orig
+
+
+@contextmanager
+def plain_kernels(K):
+    """Route every kernel wrapper to its plain version, for comparison."""
+    saved = {name: getattr(K, name) for name in KERNELS}
+    for name in KERNELS:
+        setattr(K, name, getattr(K, name + "_plain"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(K, name, fn)
 
 
 def _profile_decode_step(lm, params, dev, batch: int = 8, pos: int = 64):

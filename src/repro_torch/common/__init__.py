@@ -1,3 +1,4 @@
-from .utils import act_fn, cdiv, map_leaves, round_up
+from .utils import act_fn, cdiv, map_leaves, map_trees, round_up, tree_leaves
 
-__all__ = ["act_fn", "cdiv", "map_leaves", "round_up"]
+__all__ = ["act_fn", "cdiv", "map_leaves", "map_trees", "round_up",
+           "tree_leaves"]

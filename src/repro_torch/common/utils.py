@@ -36,3 +36,22 @@ def map_leaves(tree, fn: Callable[[tuple, Any], Any], path: tuple = ()):
     if isinstance(tree, (list, tuple)):
         return [map_leaves(v, fn, path + (i,)) for i, v in enumerate(tree)]
     return fn(path, tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts and lists, in ``map_leaves`` order."""
+    out = []
+    map_leaves(tree, lambda path, leaf: out.append(leaf))
+    return out
+
+
+def map_trees(fn: Callable[..., Any], tree, *others):
+    """``fn(leaf, *other_leaves)`` over trees of one structure (the first
+    tree's)."""
+    if isinstance(tree, dict):
+        return {k: map_trees(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_trees(fn, v, *(o[i] for o in others))
+                for i, v in enumerate(tree)]
+    return fn(tree, *others)

@@ -1,5 +1,6 @@
 from .archs import get_config, reduced
-from .base import AttentionConfig, BlockSpecEntry, FFNConfig, ModelConfig, moe_ffn
+from .base import (AttentionConfig, BlockSpecEntry, FFNConfig, ModelConfig,
+                   OptimizerConfig, moe_ffn)
 
 __all__ = ["AttentionConfig", "BlockSpecEntry", "FFNConfig", "ModelConfig",
-           "get_config", "moe_ffn", "reduced"]
+           "OptimizerConfig", "get_config", "moe_ffn", "reduced"]

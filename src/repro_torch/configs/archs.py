@@ -1,10 +1,12 @@
-"""The architectures the port serves, and ``reduced()`` smoke variants: a
-copy of the reference's ``configs/archs.py`` entries the port runs."""
+"""The architectures the port runs, and ``reduced()`` smoke variants: a
+copy of the reference's ``configs/archs.py`` entries. granite-moe is the
+serving slice's model; the paper's WikiText-103 configs (Tab. 8/9) are the
+training slice's."""
 from __future__ import annotations
 
 from typing import Callable, Dict
 
-from .base import AttentionConfig, ModelConfig, moe_ffn
+from .base import AttentionConfig, FFNConfig, ModelConfig, moe_ffn
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
@@ -37,6 +39,31 @@ def granite_moe() -> ModelConfig:
     )
 
 
+def _paper_base(d_model, d_ff, n_layers, n_heads, head_dim, ctx, vocab) -> ModelConfig:
+    return ModelConfig(
+        name="paper", family="dense", n_layers=n_layers, d_model=d_model,
+        vocab_size=vocab, norm="layernorm", pos_encoding="xl_rel",
+        attention=AttentionConfig(n_heads=n_heads, n_kv_heads=n_heads,
+                                  head_dim=head_dim, kind="xl_rel"),
+        ffn=FFNConfig(kind="dense", d_ff=d_ff, activation="relu"),
+        xl_memory=ctx, max_seq_len=4 * ctx, dropout=0.1,
+    )
+
+
+@register("wt103-47m-dense")
+def wt103_small_dense() -> ModelConfig:
+    # Tab. 8 row 1: 47M, d_model 412, d_ff 2053, 16L, 10H, head 41, ctx 256, SP vocab.
+    return _paper_base(412, 2053, 16, 10, 41, 256, 8000).override(name="wt103-47m-dense")
+
+
+@register("wt103-47m-moe")
+def wt103_small_moe() -> ModelConfig:
+    # Tab. 9: N_E=16, G=128, K=4, gamma=1e-3, no expert dropout.
+    base = wt103_small_dense()
+    return base.with_ffn(moe_ffn(16, 128, 4, reg_gamma=1e-3, reg_kind="entropy",
+                                 dispatch="sort")).override(name="wt103-47m-moe")
+
+
 def reduced(name: str) -> ModelConfig:
     """A tiny config of the same family as ``name`` for CPU smoke tests (the
     reference's rules for the families registered here)."""
@@ -58,4 +85,8 @@ def reduced(name: str) -> ModelConfig:
                             renormalize=f.renormalize, glu_experts=f.glu_experts,
                             n_shared_experts=f.n_shared_experts, reg_kind=f.reg_kind,
                             reg_gamma=f.reg_gamma, dispatch="sort")
+    elif f.kind in ("dense", "glu"):
+        kw["ffn"] = FFNConfig(kind=f.kind, d_ff=128, activation=f.activation)
+    if cfg.xl_memory:
+        kw["xl_memory"] = 32
     return cfg.override(**kw)

@@ -5,6 +5,7 @@ config built here equals the reference's field by field).
 Everything is a frozen dataclass; ``cfg.override(**kw)`` and
 ``cfg.with_ffn(ffn)`` produce variants. Pure data: no torch import. Only
 the MoE FFN kinds and attention mixers have code behind them so far.
+``OptimizerConfig`` is the reference's, for the trainer (``runtime/steps``).
 """
 from __future__ import annotations
 
@@ -114,3 +115,20 @@ class ModelConfig:
 
     def with_ffn(self, ffn: FFNConfig) -> "ModelConfig":
         return dataclasses.replace(self, ffn=ffn)
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 2.5e-4
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 0.25
+    schedule: str = "cosine"           # cosine | wsd | constant
+    warmup_steps: int = 0
+    total_steps: int = 100_000
+    final_lr_ratio: float = 0.0
+    grad_accum: int = 1
+    grad_compression: str = "none"     # none | bf16 | int8  (error-feedback)

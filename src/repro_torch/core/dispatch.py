@@ -5,12 +5,17 @@
 the "sort" dispatch (the paper's dropless CVMM) the rung comes from
 ``resolve_impl``:
 
-  pallas         the unfused planned rung: one CvmmPlan per call, then the
-                 K4 grouped-GEMM kernel for w1 (w1g) and w2. "auto" on CUDA.
+  pallas_fused   the fused pipeline (``ops.moe_mlp_fused``): one CvmmPlan
+                 per call, K1 and K2 forward, K1, K3 and K4 backward.
+                 "auto" on CUDA, as on the reference's TPU; on the CPU it
+                 runs the kernels' plain versions.
+  pallas         the unfused planned rung: the K4 grouped-GEMM kernel for
+                 w1 (w1g) and w2. Forward only on CUDA: K4 raises under
+                 grad, since its backward (K5) is not ported.
   ragged / ref   plain grouped matmuls, the stand-ins for XLA's ragged_dot
                  and the one-hot oracle; "auto" on the CPU. CPU only.
-  pallas_fused   the fused K1/K2 kernels: not ported yet, raises on CUDA
-                 (on the CPU it runs the plain unfused rung).
+
+The reference's ``*_interpret`` names select the same rungs here.
 
 Serving installs a decode provider (``set_decode_provider``) that claims
 small calls and runs them on a cached routing-free DecodePlan
@@ -50,27 +55,24 @@ def _sort_path(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
     to the tokens."""
     n, d = xf.shape
     k = cfg.k
-    impl = resolve_impl(cfg, xf.device)
+    impl = resolve_impl(cfg, xf.device).removesuffix("_interpret")
     if impl in ("einsum", "dense"):
         impl = "ragged"
-    on_cuda = xf.device.type == "cuda"
-    if impl.startswith("pallas_fused"):
-        if on_cuda:
-            raise NotImplementedError(
-                "impl='pallas_fused' needs the fused K1/K2 kernels, which "
-                "come with the port's training slice; use 'pallas'")
-        impl = "pallas"
-    if on_cuda and not impl.startswith("pallas"):
+    if xf.device.type == "cuda" and not impl.startswith("pallas"):
         raise NotImplementedError(
-            f"impl={impl!r} is a plain CPU rung; on CUDA use 'pallas'")
+            f"impl={impl!r} is a plain CPU rung; on CUDA use 'pallas_fused'")
 
     w1 = params["we1"].to(xf.dtype)
     w2 = params["we2"].to(xf.dtype)
     w1g = params["we1g"].to(xf.dtype) if cfg.glu_experts else None
+    if impl == "pallas_fused":
+        plan = kops.make_moe_plan(info.idx, e, info.gates)
+        return kops.moe_mlp_fused(xf, plan, w1, w2, w1g,
+                                  activation=cfg.activation)
+
     tok = torch.arange(n, device=xf.device).repeat_interleave(k)
     g_flat = info.gates.reshape(-1)
-
-    if impl.startswith("pallas"):
+    if impl == "pallas":
         plan = kops.make_moe_plan(info.idx, e)
         src = tok[plan.perm]
         x_sorted = xf[src]

@@ -4,7 +4,7 @@ shared always-on experts and the regularizer bookkeeping. Execution lives
 in core/dispatch.py (``expert_mlp``)."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -56,23 +56,27 @@ def init_moe(gen: torch.Generator, d_model: int, cfg: FFNConfig,
     return p
 
 
-def _route(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
-           e_pad: int) -> SelectionInfo:
+def _route(params: Dict, xf: torch.Tensor, cfg: FFNConfig, e_pad: int,
+           gen: Optional[torch.Generator], train: bool) -> SelectionInfo:
     logits = xf @ params["router"].to(xf.dtype)
     if e_pad > cfg.n_experts:
         pad = logits.new_full((xf.shape[0], e_pad - cfg.n_experts), -1e9)
         logits = torch.cat([logits, pad], dim=-1)
-    return select_experts(logits, cfg, n_valid_experts=cfg.n_experts)
+    return select_experts(logits, cfg, gen=gen, train=train,
+                          n_valid_experts=cfg.n_experts)
 
 
-def apply_moe(params: Dict, x: torch.Tensor,
-              cfg: FFNConfig) -> Tuple[torch.Tensor, Dict]:
-    """y_hat = sum_{e in E_x} W2^e s[e] act(W1^e x)  (paper Eq. 11) + aux."""
+def apply_moe(params: Dict, x: torch.Tensor, cfg: FFNConfig, *,
+              gen: Optional[torch.Generator] = None,
+              train: bool = False) -> Tuple[torch.Tensor, Dict]:
+    """y_hat = sum_{e in E_x} W2^e s[e] act(W1^e x)  (paper Eq. 11) + aux.
+    ``aux["moe_reg"]`` is the scaled regularizer, differentiable through the
+    router; ``gen`` draws the expert dropout mask in training."""
     lead = x.shape[:-1]
     d = x.shape[-1]
     xf = x.reshape(-1, d)
     e = params["we1"].shape[0]
-    info = _route(params, xf, cfg, e)
+    info = _route(params, xf, cfg, e, gen, train)
     y, dropped = expert_mlp(params, xf, cfg, info, e)
     if cfg.n_shared_experts:
         hs = torch.einsum("nd,edg->eng", xf, params["shared_w1"].to(xf.dtype))

@@ -1,4 +1,6 @@
-"""Expert selection (the reference's ``core/routing.py``, inference subset).
+"""Expert selection (the reference's ``core/routing.py``): the softmax and
+sigmoid selectors with top-k, and expert dropout in training. Noisy gating,
+Sinkhorn and S-BASE are not ported yet.
 
 ``select_experts(logits, cfg) -> SelectionInfo`` with ``gates``/``idx``
 (N, K) and the full selection distribution for the regularizers.
@@ -37,11 +39,19 @@ def norm_topk(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return gates, idx
 
 
+def expert_dropout_mask(gen: torch.Generator, n_experts: int, rate: float,
+                        device="cuda") -> torch.Tensor:
+    """Paper Eq. 22: Bernoulli(1 - rate) over whole experts, no rescaling.
+    Draws from ``gen``; they differ from JAX's for the same seed."""
+    return torch.rand((n_experts,), generator=gen, device=device) < 1.0 - rate
+
+
 def select_experts(logits: torch.Tensor, cfg: FFNConfig, *,
+                   gen: Optional[torch.Generator] = None, train: bool = False,
                    n_valid_experts: Optional[int] = None) -> SelectionInfo:
-    """Inference-time selection: logits (N, E_padded) = x @ W3; experts at
-    or past ``n_valid_experts`` are padding and masked out. Training-only
-    parts of the reference (noise, expert dropout) are not ported yet."""
+    """logits (N, E_padded) = x @ W3; experts at or past ``n_valid_experts``
+    are padding and masked out. In training with a generator and
+    ``cfg.expert_dropout`` > 0, whole experts are dropped from ``sel``."""
     n, e = logits.shape
     k = cfg.k
     if n_valid_experts is not None and n_valid_experts < e:
@@ -57,6 +67,10 @@ def select_experts(logits: torch.Tensor, cfg: FFNConfig, *,
         sel = probs
     else:
         raise ValueError(f"unknown selector activation {act}")
+
+    if train and cfg.expert_dropout > 0.0 and gen is not None:
+        mask = expert_dropout_mask(gen, e, cfg.expert_dropout, logits.device)
+        sel = sel * mask[None, :].to(sel.dtype)
 
     if act == "softmax_pre_topk" or (act == "softmax" and cfg.renormalize):
         gates, idx = norm_topk(sel, k)

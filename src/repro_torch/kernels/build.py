@@ -3,8 +3,8 @@
 Each source has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library, loaded with ``ctypes``. Libraries go
 to ``build/repro_torch/`` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source is never served by a stale
-library. ``build()`` starts one ``nvcc`` per missing library, all at once,
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is never served by a stale library. ``build()`` starts one ``nvcc`` per missing library, all at once,
 and waits for all of them. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -21,7 +21,9 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = {"cvmm": "cvmm.cu", "gather_rows": "gather_rows.cu"}
+SOURCES = {"cvmm": "cvmm.cu", "gather_rows": "gather_rows.cu",
+           "fused_w1": "fused_w1.cu", "fused_w2": "fused_w2.cu",
+           "dw_streamed": "dw_streamed.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,6 +49,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

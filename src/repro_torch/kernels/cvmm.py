@@ -1,19 +1,31 @@
-"""CVMM kernels on Hopper: the grouped GEMM (K4) and the row gather (K6).
+"""CVMM kernels on Hopper: the grouped GEMMs (K1, K2, K4), the expert
+weight gradient (K3) and the row gather (K6).
 
 Layout contract (shared with kernels/ops.py, as in the reference's
 ``kernels/cvmm.py``): rows are sorted by expert and each expert's range is
 padded to a multiple of the row tile ``TM`` = 128, so every 128-row tile
-belongs to exactly one expert.
+belongs to exactly one expert. ``row_src`` (M_pad,) names the unsorted row
+behind each padded slot; a sentinel (any index outside [0, N); the plans
+use N) marks a slack slot, which reads as a zero row.
 
+  ``fused_w1(x, row_src, te, w1, w1g)``  u = act(x[row_src] @ w1[e]) [* (.. @ w1g[e])]
+      replaces ``cvmm_fused_w1_pallas``; CUDA source ``csrc/fused_w1.cu``.
+  ``fused_w2(u_pad, te, w2, gate)``      y = (u_pad @ w2[e]) * gate, f32 accumulation
+      replaces ``cvmm_fused_w2_pallas``; CUDA source ``csrc/fused_w2.cu``.
+  ``dw_streamed(x, g, row_src, te, E)``  dW[e] = sum over e's tiles of A^T B, f32
+      replaces ``cvmm_dw_streamed_pallas``; CUDA source ``csrc/dw_streamed.cu``.
   ``cvmm(x_pad, tile_expert, w)``        out[t] = x_pad[t] @ w[tile_expert[t]]
       replaces ``cvmm_pallas``; CUDA source ``csrc/cvmm.cu``.
   ``gather_rows(x, row_src, weight)``    out[s] = x[row_src[s]] (* weight[s])
       replaces ``cvmm_gather_rows_pallas``; CUDA source ``csrc/gather_rows.cu``.
 
-Each wrapper takes its plain PyTorch version (``cvmm_plain``,
-``gather_rows_plain``) only for tensors on the CPU. For a CUDA tensor it
-launches the kernel on the current stream, or raises. ``LAUNCHES`` counts
-kernel launches per wrapper; nothing else adds to it.
+Each wrapper takes its plain PyTorch version (``*_plain``) only for tensors
+on the CPU. For a CUDA tensor it launches the kernel on the current stream,
+or raises. A kernel's output has no autograd history, so on CUDA every
+wrapper raises when grad mode is on and an input requires grad: gradients
+come from ``ops.moe_mlp_fused``, whose backward runs K1, K3 and K4; the
+unfused rung's backward (K5, ``cvmm_dw_pallas``) is not ported. ``LAUNCHES``
+counts kernel launches per wrapper; nothing else adds to it.
 """
 from __future__ import annotations
 
@@ -22,12 +34,15 @@ from typing import Optional
 
 import torch
 
+from ..common import act_fn
 from . import build
 
 TM = 128
 LANE = 128
 
-LAUNCHES = {"cvmm": 0, "gather_rows": 0}
+LAUNCHES = {"cvmm": 0, "gather_rows": 0, "fused_w1": 0, "fused_w2": 0,
+            "dw_streamed": 0}
+ACTIVATIONS = {"identity": 0, "relu": 1, "gelu": 2, "silu": 3}  # csrc/row_gemm.cuh
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _C = ctypes.c_void_p
@@ -47,8 +62,25 @@ def _fn(lib_name: str, symbol: str, argtypes):
     return fn
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+def _use_plain(t: torch.Tensor) -> bool:
+    """The plain version runs for CPU tensors, and only for them."""
+    return t.device.type == "cpu"
+
+
+def _check_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise unless the tensors can go to a kernel: on one CUDA device,
+    contiguous, 16-byte aligned, and not needing a gradient."""
+    tensors = [t for t in tensors if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but a kernel's output has no "
+            "autograd history. Training runs through ops.moe_mlp_fused "
+            "(impl='pallas_fused'), whose backward is K1/K3/K4; the backward "
+            "of this unfused call would need K5 (cvmm_dw_pallas), which is "
+            "not ported yet. Call it under torch.no_grad() for inference.")
     dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
@@ -91,13 +123,11 @@ def cvmm(x_pad: torch.Tensor, tile_expert: torch.Tensor,
     if w.dtype != x_pad.dtype or x_pad.dtype not in _DTYPE_CODE:
         raise ValueError(f"cvmm: dtypes x {x_pad.dtype}, w {w.dtype}; need "
                          "matching float32 or bfloat16")
-    if x_pad.device.type == "cpu":
+    if _use_plain(x_pad):
         return cvmm_plain(x_pad, tile_expert, w)
-    if x_pad.device.type != "cuda":
-        raise ValueError(f"cvmm: unsupported device {x_pad.device}")
+    _check_cuda("cvmm", x_pad, tile_expert, w)
     if tile_expert.dtype != torch.int32:
         raise ValueError("cvmm: tile_expert must be int32")
-    _check_cuda("cvmm", x_pad, tile_expert, w)
     out = torch.empty((m_pad, n_pad), dtype=x_pad.dtype, device=x_pad.device)
     fn = _fn("cvmm", "repro_cvmm", [_C, _C, _C, _C, _I, _I, _I, _I, _I, _C])
     rc = fn(x_pad.data_ptr(), tile_expert.data_ptr(), w.data_ptr(),
@@ -142,14 +172,11 @@ def gather_rows(x: torch.Tensor, row_src: torch.Tensor,
     if weight is not None and (weight.shape != (m_pad,)
                                or weight.dtype != torch.float32):
         raise ValueError("gather_rows: weight must be (M_pad,) float32")
-    if x.device.type == "cpu":
+    if _use_plain(x):
         return gather_rows_plain(x, row_src, weight)
-    if x.device.type != "cuda":
-        raise ValueError(f"gather_rows: unsupported device {x.device}")
+    _check_cuda("gather_rows", x, row_src, weight)
     if row_src.dtype != torch.int32:
         raise ValueError("gather_rows: row_src must be int32")
-    _check_cuda("gather_rows", x, row_src,
-                *(() if weight is None else (weight,)))
     out = torch.empty((m_pad, k_pad), dtype=x.dtype, device=x.device)
     fn = _fn("gather_rows", "repro_gather_rows",
              [_C, _C, _C, _C, _I, _I, _I, _I, _C])
@@ -159,4 +186,192 @@ def gather_rows(x: torch.Tensor, row_src: torch.Tensor,
             torch.cuda.current_stream(x.device).cuda_stream)
     _launch_status("gather_rows", rc)
     LAUNCHES["gather_rows"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K1: gather-fused grouped GEMM with an activation (and GLU) epilogue
+# ---------------------------------------------------------------------------
+
+def _tiles(a: torch.Tensor) -> torch.Tensor:
+    """(M_pad, W) -> (M_pad//TM, TM, W) in float32."""
+    return a.reshape(a.shape[0] // TM, TM, a.shape[1]).float()
+
+
+def fused_w1_plain(x: torch.Tensor, row_src: torch.Tensor,
+                   tile_expert: torch.Tensor, w1: torch.Tensor,
+                   w1g: Optional[torch.Tensor] = None, *, act: str = "relu",
+                   save_preact: bool = False):
+    """Plain version of ``fused_w1``: gather, per-tile products in float32,
+    the activation (and GLU) in float32, each output rounded once."""
+    m_pad = row_src.shape[0]
+    xt = _tiles(gather_rows_plain(x, row_src))
+    te = tile_expert.long()
+    h = torch.bmm(xt, w1[te].float()).reshape(m_pad, -1)
+    u = act_fn(act)(h)
+    hg = None
+    if w1g is not None:
+        hg = torch.bmm(xt, w1g[te].float()).reshape(m_pad, -1)
+        u = u * hg
+    if not save_preact:
+        return u.to(x.dtype)
+    return tuple(t.to(x.dtype) for t in (u, h, hg) if t is not None)
+
+
+def fused_w1(x: torch.Tensor, row_src: torch.Tensor, tile_expert: torch.Tensor,
+             w1: torch.Tensor, w1g: Optional[torch.Tensor] = None, *,
+             act: str = "relu", save_preact: bool = False):
+    """x (N, K_pad) unsorted rows; row_src (M_pad,) int32 with sentinels;
+    tile_expert (M_pad//TM,) int32; w1, w1g (E, K_pad, G_pad) in x's dtype.
+    Returns u (M_pad, G_pad) in x's dtype, or with ``save_preact`` the tuple
+    (u, h) or (u, h, hg) with the pre-activations."""
+    n_rows, k_pad = x.shape
+    (m_pad,) = row_src.shape
+    e, k_w, g_pad = w1.shape
+    if (k_w != k_pad or m_pad % TM or k_pad % LANE or g_pad % LANE
+            or tile_expert.shape != (m_pad // TM,)
+            or (w1g is not None and w1g.shape != w1.shape)):
+        raise ValueError(f"fused_w1: bad shapes x {tuple(x.shape)}, row_src "
+                         f"{tuple(row_src.shape)}, w1 {tuple(w1.shape)}")
+    if (x.dtype not in _DTYPE_CODE or w1.dtype != x.dtype
+            or (w1g is not None and w1g.dtype != x.dtype)):
+        raise ValueError(f"fused_w1: dtypes x {x.dtype}, w1 {w1.dtype}; need "
+                         "matching float32 or bfloat16")
+    if act not in ACTIVATIONS:
+        raise ValueError(f"fused_w1: activation {act!r} is not one of "
+                         f"{sorted(ACTIVATIONS)}")
+    if _use_plain(x):
+        return fused_w1_plain(x, row_src, tile_expert, w1, w1g, act=act,
+                              save_preact=save_preact)
+    _check_cuda("fused_w1", x, row_src, tile_expert, w1, w1g)
+    if row_src.dtype != torch.int32 or tile_expert.dtype != torch.int32:
+        raise ValueError("fused_w1: row_src and tile_expert must be int32")
+    n_out = (2 + (w1g is not None)) if save_preact else 1
+    outs = [torch.empty((m_pad, g_pad), dtype=x.dtype, device=x.device)
+            for _ in range(n_out)]
+    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - n_out)
+    fn = _fn("fused_w1", "repro_fused_w1",
+             [_C] * 8 + [_I] * 7 + [_C])
+    rc = fn(x.data_ptr(), row_src.data_ptr(), tile_expert.data_ptr(),
+            w1.data_ptr(), None if w1g is None else w1g.data_ptr(), *ptrs,
+            n_rows, m_pad, k_pad, g_pad, e, ACTIVATIONS[act],
+            _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    _launch_status("fused_w1", rc)
+    LAUNCHES["fused_w1"] += 1
+    return tuple(outs) if save_preact else outs[0]
+
+
+# ---------------------------------------------------------------------------
+# K2: grouped GEMM with the gate multiply in the epilogue
+# ---------------------------------------------------------------------------
+
+def fused_w2_plain(u_pad: torch.Tensor, tile_expert: torch.Tensor,
+                   w2: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``fused_w2``: per-tile products in float32, times
+    the float32 gate, rounded once."""
+    m_pad = u_pad.shape[0]
+    y = torch.bmm(_tiles(u_pad), w2[tile_expert.long()].float())
+    return (y.reshape(m_pad, -1) * gate[:, None]).to(u_pad.dtype)
+
+
+def fused_w2(u_pad: torch.Tensor, tile_expert: torch.Tensor, w2: torch.Tensor,
+             gate: torch.Tensor) -> torch.Tensor:
+    """u_pad (M_pad, G_pad) tile-aligned; tile_expert (M_pad//TM,) int32;
+    w2 (E, G_pad, N_pad) in u's dtype; gate (M_pad,) float32. Returns
+    (M_pad, N_pad) in u's dtype."""
+    m_pad, g_pad = u_pad.shape
+    e, g_w, n_pad = w2.shape
+    if (g_w != g_pad or m_pad % TM or g_pad % LANE or n_pad % LANE
+            or tile_expert.shape != (m_pad // TM,) or gate.shape != (m_pad,)):
+        raise ValueError(f"fused_w2: bad shapes u {tuple(u_pad.shape)}, w2 "
+                         f"{tuple(w2.shape)}, gate {tuple(gate.shape)}")
+    if (u_pad.dtype not in _DTYPE_CODE or w2.dtype != u_pad.dtype
+            or gate.dtype != torch.float32):
+        raise ValueError(f"fused_w2: dtypes u {u_pad.dtype}, w2 {w2.dtype}, "
+                         f"gate {gate.dtype}; need matching float32 or "
+                         "bfloat16 and a float32 gate")
+    if _use_plain(u_pad):
+        return fused_w2_plain(u_pad, tile_expert, w2, gate)
+    _check_cuda("fused_w2", u_pad, tile_expert, w2, gate)
+    if tile_expert.dtype != torch.int32:
+        raise ValueError("fused_w2: tile_expert must be int32")
+    out = torch.empty((m_pad, n_pad), dtype=u_pad.dtype, device=u_pad.device)
+    fn = _fn("fused_w2", "repro_fused_w2", [_C] * 5 + [_I] * 5 + [_C])
+    rc = fn(u_pad.data_ptr(), tile_expert.data_ptr(), w2.data_ptr(),
+            gate.data_ptr(), out.data_ptr(), m_pad, g_pad, n_pad, e,
+            _DTYPE_CODE[u_pad.dtype],
+            torch.cuda.current_stream(u_pad.device).cuda_stream)
+    _launch_status("fused_w2", rc)
+    LAUNCHES["fused_w2"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: expert weight gradient with one operand gathered through row_src
+# ---------------------------------------------------------------------------
+
+def dw_streamed_plain(x: torch.Tensor, g: torch.Tensor, row_src: torch.Tensor,
+                      tile_expert: torch.Tensor, n_experts: int, *,
+                      stream_x: bool,
+                      gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of ``dw_streamed``: both operands laid out tile by tile
+    (slack rows zero in both), the gated rows rounded back to their dtype,
+    per-tile A^T B in float32 summed per expert."""
+    n_rows = (x if stream_x else g).shape[0]
+    valid = ((row_src >= 0) & (row_src < n_rows))[:, None]
+    if stream_x:
+        a = gather_rows_plain(x, row_src)
+        b = torch.where(valid, g, g.new_zeros(()))
+    else:
+        a = torch.where(valid, x, x.new_zeros(()))
+        b = gather_rows_plain(g, row_src)
+        if gate is not None:
+            b = (b.float() * gate[:, None]).to(b.dtype)
+    prod = torch.bmm(_tiles(a).transpose(1, 2), _tiles(b))
+    out = torch.zeros((n_experts,) + prod.shape[1:], dtype=torch.float32,
+                      device=x.device)
+    return out.index_add_(0, tile_expert.long(), prod)
+
+
+def dw_streamed(x: torch.Tensor, g: torch.Tensor, row_src: torch.Tensor,
+                tile_expert: torch.Tensor, n_experts: int, *, stream_x: bool,
+                gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dW (E, K_pad, N_pad) float32, every expert's block written (zeros for
+    an expert with no rows).
+
+    stream_x=True:  x (N, K_pad) unsorted, read through row_src; g (M_pad,
+                    N_pad) tile-aligned (dW1, dW1g).
+    stream_x=False: x (M_pad, K_pad) tile-aligned; g (N, N_pad) unsorted,
+                    read through row_src and scaled per row by ``gate``
+                    (M_pad,) float32 when given (dW2)."""
+    (m_pad,) = row_src.shape
+    k_pad, n_pad = x.shape[1], g.shape[1]
+    aligned = g if stream_x else x
+    if (m_pad % TM or k_pad % LANE or n_pad % LANE or aligned.shape[0] != m_pad
+            or tile_expert.shape != (m_pad // TM,)
+            or (gate is not None and (stream_x or gate.shape != (m_pad,)))):
+        raise ValueError(f"dw_streamed: bad shapes x {tuple(x.shape)}, g "
+                         f"{tuple(g.shape)}, row_src {tuple(row_src.shape)}, "
+                         f"stream_x {stream_x}, gate "
+                         f"{None if gate is None else tuple(gate.shape)}")
+    if (x.dtype not in _DTYPE_CODE or g.dtype != x.dtype
+            or (gate is not None and gate.dtype != torch.float32)):
+        raise ValueError(f"dw_streamed: dtypes x {x.dtype}, g {g.dtype}; need "
+                         "matching float32 or bfloat16 and a float32 gate")
+    if _use_plain(x):
+        return dw_streamed_plain(x, g, row_src, tile_expert, n_experts,
+                                 stream_x=stream_x, gate=gate)
+    _check_cuda("dw_streamed", x, g, row_src, tile_expert, gate)
+    if row_src.dtype != torch.int32 or tile_expert.dtype != torch.int32:
+        raise ValueError("dw_streamed: row_src and tile_expert must be int32")
+    out = torch.empty((n_experts, k_pad, n_pad), dtype=torch.float32,
+                      device=x.device)
+    fn = _fn("dw_streamed", "repro_dw_streamed", [_C] * 6 + [_I] * 7 + [_C])
+    rc = fn(x.data_ptr(), g.data_ptr(), row_src.data_ptr(),
+            tile_expert.data_ptr(), None if gate is None else gate.data_ptr(),
+            out.data_ptr(), (x if stream_x else g).shape[0], m_pad, k_pad,
+            n_pad, n_experts, int(stream_x), _DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _launch_status("dw_streamed", rc)
+    LAUNCHES["dw_streamed"] += 1
     return out

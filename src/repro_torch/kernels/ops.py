@@ -1,5 +1,5 @@
-"""The plan layer around the CVMM kernels: inference-only forward parts of
-the reference's ``kernels/ops.py``.
+"""The plan layer around the CVMM kernels: the parts of the reference's
+``kernels/ops.py`` that the port runs.
 
 Layout plans
 ------------
@@ -15,14 +15,18 @@ leave that table out.
 
 Entry points
 ------------
+``moe_mlp_fused``          the fused dropless expert MLP (the sort path's
+                            default rung on CUDA): forward K1 then K2, and a
+                            backward of K1, K3 and K4, as a
+                            ``torch.autograd.Function``; gradients reach x,
+                            the expert weights and, through the plan's
+                            ``gate_tiles``, the router.
 ``cvmm_planned``           the sort path's grouped GEMM on a ``CvmmPlan``
-                            (the unfused rung, K4).
+                            (the unfused rung, K4; forward only).
 ``cvmm``                   the plain grouped rungs ("ragged", "ref").
 ``moe_mlp_decode``         serving's decode-shaped MoE MLP on a cached,
                             routing-free ``DecodePlan`` (K6 gather, then K4
-                            three times).
-
-All of it is forward-only: nothing here records a backward.
+                            three times; forward only).
 """
 from __future__ import annotations
 
@@ -39,9 +43,9 @@ from .cvmm import LANE, TM
 
 
 def default_impl(device) -> str:
-    """The sort path's rung: the K4 kernel on CUDA ("pallas" until the fused
-    K1/K2 kernels are ported), the plain grouped matmul elsewhere."""
-    return "pallas" if torch.device(device).type == "cuda" else "ragged"
+    """The sort path's rung: the fused kernels on CUDA, as the reference's
+    TPU default; the plain grouped matmul elsewhere."""
+    return "pallas_fused" if torch.device(device).type == "cuda" else "ragged"
 
 
 def _pad_lane(a: torch.Tensor, axis: int) -> torch.Tensor:
@@ -90,26 +94,47 @@ def _tile_layout(group_sizes: torch.Tensor, m: int,
 
 @dataclass(frozen=True)
 class CvmmPlan:
-    """Layout metadata of one MoE call, shared by its three grouped GEMMs:
-    the fields of the reference's ``CvmmPlan`` that the unfused forward
-    reads (the fused kernels' ``row_src``/``gate_tiles`` and the TPU DMA
-    chunk table come with the slices that use them)."""
+    """Layout metadata of one MoE call, shared by every kernel launch of it,
+    forward and backward: the reference's ``CvmmPlan`` without the TPU DMA
+    chunk table (the Hopper kernels read ``row_src`` directly).
+    ``gate_tiles`` is the one differentiable field: it is built from the
+    gates by indexing, so the gates' gradient reaches the router."""
     perm: torch.Tensor          # (N*K,) stable argsort of flat expert ids
     group_sizes: torch.Tensor   # (E,) rows per expert
     new_pos: torch.Tensor       # (N*K,) tile-aligned slot of sorted row i
+    row_src: torch.Tensor       # (M_pad,) int32 source token; sentinel N on slack
     tile_expert: torch.Tensor   # (M_pad//TM,) int32 row tile -> expert id
+    gate_tiles: Optional[torch.Tensor]  # (M_pad//TM, TM) float32 gate per
+    #                                     slot, 0 on slack (None: no gates)
+
+    @property
+    def m_pad(self) -> int:
+        return self.tile_expert.shape[0] * TM
 
 
-def make_moe_plan(idx: torch.Tensor, n_experts: int) -> CvmmPlan:
+def make_moe_plan(idx: torch.Tensor, n_experts: int,
+                  gates: Optional[torch.Tensor] = None) -> CvmmPlan:
     """Build the CvmmPlan for one MoE call from the selected experts
-    idx (N, K)."""
+    idx (N, K) and, for the fused rung, their gates (N, K)."""
+    n_tokens, k = idx.shape
     e_flat = idx.reshape(-1).to(torch.int64)
     perm = torch.argsort(e_flat, stable=True)
     group_sizes = torch.bincount(e_flat, minlength=n_experts).to(torch.int32)
-    new_pos, tile_expert, _ = _tile_layout(group_sizes, e_flat.shape[0],
-                                           n_experts)
+    new_pos, tile_expert, m_pad = _tile_layout(group_sizes, e_flat.shape[0],
+                                               n_experts)
+    tok = torch.arange(n_tokens, dtype=torch.int32,
+                       device=idx.device).repeat_interleave(k)
+    row_src = torch.full((m_pad,), n_tokens, dtype=torch.int32,
+                         device=idx.device)
+    row_src[new_pos] = tok[perm]
+    gate_tiles = None
+    if gates is not None:
+        gate_pad = torch.zeros((m_pad,), dtype=torch.float32, device=idx.device)
+        gate_pad = gate_pad.index_put((new_pos,), gates.reshape(-1)[perm].float())
+        gate_tiles = gate_pad.reshape(m_pad // TM, TM)
     return CvmmPlan(perm=perm, group_sizes=group_sizes, new_pos=new_pos,
-                    tile_expert=tile_expert)
+                    row_src=row_src, tile_expert=tile_expert,
+                    gate_tiles=gate_tiles)
 
 
 def _planned_fwd(x: torch.Tensor, new_pos: torch.Tensor,
@@ -154,6 +179,108 @@ def cvmm(x: torch.Tensor, group_sizes: torch.Tensor, w: torch.Tensor,
     if impl == "ref":
         return refk.cvmm_ref(x, group_sizes, w)
     raise ValueError(f"unknown cvmm impl {impl}")
+
+
+# ---------------------------------------------------------------------------
+# Fused MoE-MLP pipeline (gather -> grouped GEMM -> epilogue), with backward
+# ---------------------------------------------------------------------------
+
+FUSIBLE_ACTIVATIONS = tuple(K.ACTIVATIONS)
+
+
+def _scatter_rows(rows: torch.Tensor, row_src: torch.Tensor, n: int,
+                  width: int, dtype: torch.dtype) -> torch.Tensor:
+    """Sum the padded rows back onto their n source rows in float32 and
+    round once; slack rows (sentinel row_src == n) land on a dropped row."""
+    out = torch.zeros((n + 1, rows.shape[1]), dtype=torch.float32,
+                      device=rows.device)
+    out.index_add_(0, row_src.long(), rows.float())
+    return out[:n, :width].to(dtype)
+
+
+class _MoeMlpFused(torch.autograd.Function):
+    """The reference's ``_moe_mlp_fused`` custom_vjp (``kernels/ops.py``):
+    forward K1 (with the pre-activations saved under grad) then K2; backward
+    t0 = gather(dy) @ w2^T by K1, the activation's elementwise VJP and
+    dgate = sum(t0 * u) in plain torch, dW2 and dW1 (dW1g) by K3, dX by K4.
+    Weights arrive in x's dtype; each is padded once, in forward."""
+
+    @staticmethod
+    def forward(ctx, xf, gate, w1, w1g, w2, row_src, tile_expert, act,
+                save_preact):
+        n, d = xf.shape
+        xe = _pad_lane(xf, 1)
+        w1p, w2p = _pad_w(w1), _pad_w(w2)
+        w1gp = None if w1g is None else _pad_w(w1g)
+        out = K.fused_w1(xe, row_src, tile_expert, w1p, w1gp, act=act,
+                         save_preact=save_preact)
+        u_pad = out[0] if save_preact else out
+        y_pad = K.fused_w2(u_pad, tile_expert, w2p, gate)
+        if save_preact:
+            ctx.save_for_backward(xe, gate, w1p, w1gp, w2p, row_src,
+                                  tile_expert, *out[1:])
+            ctx.act, ctx.shape = act, (n, d, w1.shape[2])
+        return _scatter_rows(y_pad, row_src, n, d, xf.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xe, gate, w1p, w1gp, w2p, row_src, te, h, *hg = ctx.saved_tensors
+        n, d, gsz = ctx.shape
+        e = w1p.shape[0]
+        act = act_fn(ctx.act)
+        dy_e = _pad_lane(dy.to(xe.dtype).contiguous(), 1)
+        t0 = K.fused_w1(dy_e, row_src, te, w2p.transpose(1, 2).contiguous(),
+                        None, act="identity")
+        with torch.enable_grad():              # the activation's VJP
+            hv = h.detach().requires_grad_()
+            ins = [hv]
+            u = act(hv)
+            if hg:
+                ins.append(hg[0].detach().requires_grad_())
+                u = u * ins[1]
+        # d/dgate[r] = dy[r] . (u[r] @ w2[e]) = (dy[r] @ w2[e]^T) . u[r]
+        dgate = torch.sum(t0.float() * u.detach().float(), dim=1)
+        du = (t0.float() * gate[:, None]).to(u.dtype)
+        dh, *dhg = torch.autograd.grad(u, ins, du)
+        dw2 = K.dw_streamed(u.detach(), dy_e, row_src, te, e, stream_x=False,
+                            gate=gate)[:, :gsz, :d]
+        dw1 = K.dw_streamed(xe, dh, row_src, te, e, stream_x=True)[:, :d, :gsz]
+        dx_pad = K.cvmm(dh, te, w1p.transpose(1, 2).contiguous())
+        dw1g = None
+        if dhg:
+            dw1g = K.dw_streamed(xe, dhg[0], row_src, te, e,
+                                 stream_x=True)[:, :d, :gsz].to(xe.dtype)
+            dx_pad = dx_pad + K.cvmm(dhg[0], te,
+                                     w1gp.transpose(1, 2).contiguous())
+        dx = _scatter_rows(dx_pad, row_src, n, d, xe.dtype)
+        return (dx, dgate, dw1.to(xe.dtype), dw1g, dw2.to(xe.dtype),
+                None, None, None, None)
+
+
+def moe_mlp_fused(xf: torch.Tensor, plan: CvmmPlan, w1: torch.Tensor,
+                  w2: torch.Tensor, w1g: Optional[torch.Tensor] = None, *,
+                  activation: str = "relu") -> torch.Tensor:
+    """Fused dropless expert MLP:
+    y[t] = sum_k gate * (act(x[t] @ w1[e]) [* x[t] @ w1g[e]]) @ w2[e].
+
+    xf (N, d) UNSORTED activations; the gather, activation/GLU and gate
+    multiply run inside the K1 and K2 launches; returns (N, d) with the
+    per-(token, expert) rows summed back per token. Differentiable in xf,
+    the weights and the plan's ``gate_tiles``. Weights are cast to xf's
+    dtype here, as the reference does."""
+    if activation not in FUSIBLE_ACTIVATIONS:
+        raise ValueError(f"activation {activation!r} is not tile-local; "
+                         f"fusible: {FUSIBLE_ACTIVATIONS}")
+    if plan.gate_tiles is None:
+        raise ValueError("moe_mlp_fused: the plan carries no gates; build it "
+                         "with make_moe_plan(idx, n_experts, gates)")
+    dt = xf.dtype
+    ws = (w1.to(dt), None if w1g is None else w1g.to(dt), w2.to(dt))
+    gate = plan.gate_tiles.reshape(-1)
+    save = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (xf, gate) + ws)
+    return _MoeMlpFused.apply(xf, gate, *ws, plan.row_src, plan.tile_expert,
+                              activation, save)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""Attention (the reference's ``models/attention.py``, rope/global/local
-branch): GQA with a chunked online-softmax core, single-token decode
-attention, and the paged KV cache that serving uses.
+"""Attention (the reference's ``models/attention.py``): GQA with a chunked
+online-softmax core, single-token decode attention, the paged KV cache that
+serving uses, and Transformer-XL relative-position attention over a
+detached segment memory (the paper's training architecture).
 
 These are plain tensor ops in the reference too, so they stay plain torch.
-Transformer-XL relative attention and cross-attention are not ported yet.
+Cross-attention is not ported yet.
 
 KV caches are updated in place (the reference returns new arrays; its
 engine donates the old ones, so nothing observes the difference) to keep
@@ -14,9 +15,10 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from ..configs.base import ModelConfig
-from .layers import apply_rope, rms_norm_simple
+from ..configs.base import AttentionConfig, ModelConfig
+from .layers import apply_rope, rms_norm_simple, sinusoid_positions
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
@@ -34,6 +36,12 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     if a.qk_norm:
         p["q_scale"] = torch.ones((a.head_dim,), dtype=dtype, device=device)
         p["k_scale"] = torch.ones((a.head_dim,), dtype=dtype, device=device)
+    if a.kind == "xl_rel":
+        p["w_r"] = rn((d, a.q_dim), std)
+        p["u_bias"] = torch.zeros((a.n_heads, a.head_dim), dtype=dtype,
+                                  device=device)
+        p["v_bias"] = torch.zeros((a.n_heads, a.head_dim), dtype=dtype,
+                                  device=device)
     return p
 
 
@@ -180,6 +188,37 @@ def paged_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Transformer-XL relative-position attention (the paper's architecture)
+# ---------------------------------------------------------------------------
+
+def _rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """(B,H,Sq,Sk) BD-term shift (Dai et al. 2019)."""
+    b, h, sq, sk = x.shape
+    x = F.pad(x, (1, 0))
+    x = x.reshape(b, h, sk + 1, sq)[:, :, 1:, :]
+    return x.reshape(b, h, sq, sk)
+
+
+def xl_attention(params: Dict, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, cfg: AttentionConfig,
+                 d_model: int) -> torch.Tensor:
+    """q (B,Sq,H,D); k/v (B,Sk,H,D) where Sk = mem + Sq. Full scores (the
+    contexts are small), softmax in float32."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    scale = cfg.softmax_scale or (dh ** -0.5)
+    r = sinusoid_positions(sk, d_model, q.dtype, q.device).flip(0)  # sk-1..0
+    r = (r @ params["w_r"].to(q.dtype)).reshape(sk, h, dh)
+    ac = torch.einsum("bqhd,bkhd->bhqk", q + params["u_bias"].to(q.dtype), k)
+    bd = torch.einsum("bqhd,khd->bhqk", q + params["v_bias"].to(q.dtype), r)
+    s = (ac + _rel_shift(bd)).float() * scale
+    q_pos = (sk - sq) + torch.arange(sq, device=q.device)
+    mask = q_pos[:, None] >= torch.arange(sk, device=q.device)[None, :]
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+# ---------------------------------------------------------------------------
 # Block-level apply
 # ---------------------------------------------------------------------------
 
@@ -187,22 +226,29 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                     kind: str = "", positions: Optional[torch.Tensor] = None,
                     cache: Optional[Dict] = None, cache_index=None,
                     block_table: Optional[torch.Tensor] = None,
-                    seq_lens=None) -> Tuple[torch.Tensor, Optional[Dict]]:
+                    seq_lens=None, memory: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One attention sublayer (projections + core + output).
 
     cache: {"k": (B,Smax,KV,D), "v": ...} with cache_index the write start,
     or, with ``block_table``, the paged pool (see ``paged_attend``).
+    memory: XL segment memory (B, M, d_model); it gets no gradient.
     Returns (output, updated cache or None)."""
     a = cfg.attention
     kind = kind or a.kind
-    b, s, _ = x.shape
+    b, s, d = x.shape
     scale = a.softmax_scale if a.softmax_scale else a.head_dim ** -0.5
     q = _split_heads(x @ params["wq"].to(x.dtype), a.n_heads, a.head_dim)
-    k = _split_heads(x @ params["wk"].to(x.dtype), a.n_kv_heads, a.head_dim)
-    v = _split_heads(x @ params["wv"].to(x.dtype), a.n_kv_heads, a.head_dim)
+    src = x if memory is None else torch.cat(
+        [memory.detach().to(x.dtype), x], dim=1)
+    k = _split_heads(src @ params["wk"].to(x.dtype), a.n_kv_heads, a.head_dim)
+    v = _split_heads(src @ params["wv"].to(x.dtype), a.n_kv_heads, a.head_dim)
     if a.qk_norm:
         q = rms_norm_simple(q, params["q_scale"])
         k = rms_norm_simple(k, params["k_scale"])
+    if kind == "xl_rel":
+        out = xl_attention(params, q, k, v, a, d)
+        return out.reshape(b, s, a.q_dim) @ params["wo"].to(x.dtype), None
     if positions is None:
         positions = torch.arange(s, device=x.device)
     if cfg.pos_encoding == "rope":

@@ -2,13 +2,12 @@
 runs sigma-MoE; the other kinds come with their slices."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..configs.base import FFNConfig
 from ..core.moe import apply_moe, init_moe
-
 
 
 def _check(cfg: FFNConfig) -> None:
@@ -23,7 +22,8 @@ def init_ffn(gen: torch.Generator, d_model: int, cfg: FFNConfig,
     return init_moe(gen, d_model, cfg, n_layers, dtype, ep_degree, device)
 
 
-def apply_ffn(params: Dict, x: torch.Tensor,
-              cfg: FFNConfig) -> Tuple[torch.Tensor, Dict]:
+def apply_ffn(params: Dict, x: torch.Tensor, cfg: FFNConfig, *,
+              gen: Optional[torch.Generator] = None,
+              train: bool = False) -> Tuple[torch.Tensor, Dict]:
     _check(cfg)
-    return apply_moe(params, x, cfg)
+    return apply_moe(params, x, cfg, gen=gen, train=train)

@@ -1,8 +1,8 @@
 """Common layers (the reference's ``models/layers.py``): norms,
-embeddings, rotary position embeddings."""
+embeddings, dropout, sinusoidal and rotary position embeddings."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -42,6 +42,27 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
                    dtype=torch.float32, device="cuda") -> torch.Tensor:
     return torch.randn((vocab, d), generator=gen, dtype=dtype,
                        device=device) * (d ** -0.5)
+
+
+def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
+            train: bool) -> torch.Tensor:
+    """Inverted dropout with draws from ``gen``; the identity outside
+    training, at rate 0, or without a generator (as the reference without
+    an rng). The draws differ from JAX's for the same seed."""
+    if not train or rate <= 0.0 or gen is None:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def sinusoid_positions(n: int, d: int, dtype=torch.float32,
+                       device="cuda") -> torch.Tensor:
+    """Classic sinusoidal table (n, d): sines then cosines, as the reference
+    (used by XL relative encodings)."""
+    inv = 1.0 / (10000.0 ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=device) / d))
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1).to(dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:

@@ -145,6 +145,7 @@ class Engine:
         return bool(self.lanes or self.sched or self._partial is not None)
 
     # ---------------------------------------------------------------- prefill
+    @torch.no_grad()    # serving never needs gradients, whatever the params
     def _prefill_one_chunk(self) -> None:
         p = self._partial
         prompt = np.asarray(p.req.prompt, np.int64)
@@ -191,6 +192,7 @@ class Engine:
         return True
 
     # ----------------------------------------------------------------- decode
+    @torch.no_grad()
     def _burst(self, tok, pos, rem, live, eos, tables, steps: int):
         """``steps`` decode steps with termination decided on the device;
         returns (live (cap,), emitted (steps, cap)) still on the device."""

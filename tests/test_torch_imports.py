@@ -8,9 +8,10 @@ from pathlib import Path
 
 import pytest
 
+from repro.configs import OptimizerConfig as JaxOptimizerConfig
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import OptimizerConfig, get_config, reduced
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -49,3 +50,15 @@ def test_port_modules_import_without_a_card():
 def test_config_copy_matches_reference(make):
     assert (dataclasses.asdict(make(get_config, reduced))
             == dataclasses.asdict(make(jax_get_config, jax_reduced)))
+
+
+@pytest.mark.parametrize("arch", ["wt103-47m-dense", "wt103-47m-moe"])
+@pytest.mark.parametrize("reduce", [False, True], ids=["full", "reduced"])
+def test_training_config_copies_match_reference(arch, reduce):
+    get, jget = (reduced, jax_reduced) if reduce else (get_config, jax_get_config)
+    assert dataclasses.asdict(get(arch)) == dataclasses.asdict(jget(arch))
+
+
+def test_optimizer_config_copy_matches_reference():
+    assert (dataclasses.asdict(OptimizerConfig())
+            == dataclasses.asdict(JaxOptimizerConfig()))

@@ -85,7 +85,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     rs = torch.tensor([3, 256] + [5] * 126, dtype=torch.int32)
     torch.testing.assert_close(K.gather_rows(x, rs), K.gather_rows_plain(x, rs))
     assert K.gather_rows(x, rs)[1].abs().sum() == 0       # sentinel row
-    assert K.LAUNCHES == {"cvmm": 0, "gather_rows": 0}
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
 
 
 @pytest.mark.parametrize("call", [

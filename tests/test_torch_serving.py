@@ -66,7 +66,7 @@ def test_engine_runs_on_cpu_without_kernel_launches(reference):
     K.reset_launch_counts()
     with Engine(lm, params, device="cpu", **ENGINE_KW) as eng:
         eng.run([Request(rid="a", prompt=[3, 4, 5], max_new=3)])
-    assert K.LAUNCHES == {"cvmm": 0, "gather_rows": 0}
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
 
 
 def test_engine_eos_and_cancel(reference):
