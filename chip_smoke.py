@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N] [--out results.json]
 
 Phases (any failure exits non-zero before the result line). 1-6 are the
-serving slice, 7-10 the training slice:
+serving slice, 7-10 the training slice on the fused rung, 11-14 training on
+the unfused rung:
 
 1. the card: torch's device name and nvidia-smi's name and power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
@@ -36,7 +37,19 @@ serving slice, 7-10 the training slice:
 10. the step's time, tokens/s, peak memory and a profile (device-busy
     share, top kernels), and each training kernel timed beside its bound,
     its plain version and a ``torch.bmm`` yardstick;
-11. one ``{"kernels": [...]}`` JSON line, then the device line last.
+11. the unfused rung's kernels (K5 for dW1 and dW2, K4 for the forward's w1
+    and w2 calls) against their plain versions at the training shapes, in
+    bf16 and float32, with an expert that gets no rows and all-sentinel
+    slack tiles;
+12. phase 8's step on the unfused rung (``ops.set_default_impl("pallas")``)
+    with phase 8's three gates, and its float32 full-depth step on the
+    unfused kernels against the fused rung's kernels (same expert choices);
+13. phase 9's run on the unfused rung: finite, falling loss, exactly 4 K4
+    and 2 K5 per MoE layer every step and no K1, K2 or K3, and a last-5
+    mean loss within 2 % of phase 9's;
+14. phase 10's measurements of that run, and K5 (and K4's forward calls)
+    timed beside the bound, the plain version and ``torch.bmm``;
+15. one ``{"kernels": [...]}`` JSON line, then the device line last.
 
 With ``--out``, the full results (every phase's numbers and the ptxas
 reports) are also written there as JSON.
@@ -317,10 +330,10 @@ def main() -> None:
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     results["timings"] = timings
 
-    # ------------------------------------------------ 7-10. the training slice
+    # ------------------------------------------------ 7-14. the training slice
     train = _training_slice(args.seed, dev, gen, K, results)
 
-    # ------------------------------------------------------------ 11. report
+    # ------------------------------------------------------------ 15. report
     def row(kernel, shape, source, replaces):
         t = next(t for t in timings if t["kernel"] == kernel and t["shape"] == shape
                  and t["dtype"] == "bfloat16")
@@ -333,9 +346,10 @@ def main() -> None:
     k4 = row("cvmm", f"M_pad 5120 {D}->{G} E {E}", "src/repro_torch/kernels/csrc/cvmm.cu",
              "src/repro/kernels/cvmm.py:241")
     k4["launches_training"] = train["launches"]["cvmm"]
+    k4["launches_training_unfused"] = train["launches_unfused"]["cvmm"]
     line = {"kernels": [
         train["rows"]["fused_w1"], train["rows"]["fused_w2"],
-        train["rows"]["dw_streamed"], k4,
+        train["rows"]["dw_streamed"], k4, train["rows"]["cvmm_dw"],
         row("gather_rows", f"n 8 d {D} into 128 rows",
             "src/repro_torch/kernels/csrc/gather_rows.cu",
             "src/repro/kernels/cvmm.py:621")]}
@@ -348,12 +362,11 @@ def main() -> None:
 
 
 def _training_slice(seed, dev, gen, K, results):
-    """Phases 7-10: the training slice's kernels, one step kernels vs plain,
-    the 30-step main path, and its measurements. Returns the launch counts
-    of the main path and the report rows of K1, K2 and K3."""
-    import numpy as np
+    """Phases 7-14: the training slice's kernels, one step kernels vs plain,
+    the 30-step main path, and its measurements, on the fused rung (7-10)
+    and the unfused rung (11-14). Returns the launch counts of both main
+    paths and the report rows of K1, K2, K3 and K5."""
     import torch
-    from repro_torch.common import map_leaves
     from repro_torch.configs import OptimizerConfig, get_config
     from repro_torch.core import routing
     from repro_torch.data import DataIterator, make_dataset
@@ -480,10 +493,183 @@ def _training_slice(seed, dev, gen, K, results):
                           TRAIN["seq"] + 1, seed=seed)
     batches = [{"tokens": torch.as_tensor(stream.next()["tokens"], device=dev)}
                for _ in range(3)]
+    three_steps = _three_steps_fn(batches, opt, seed, dev)
+    results["phase8"] = _step_gates("8", cfg, "pallas_fused", three_steps, K, ops,
+                                    routing)
+    torch.cuda.empty_cache()     # phase 9's peak memory is the trainer's own
+
+    # ------------------------------------------------ 9. the training main path
+    argv = ["--arch", TRAIN["arch"], "--steps", str(TRAIN["steps"]), "--batch",
+            str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--seed", str(seed),
+            "--device", dev.type]
+    layers = cfg.n_layers
+    fused = _train_main_path("9", argv, dict.fromkeys(K.LAUNCHES, 0) | {
+        "fused_w1": 2 * layers, "fused_w2": layers, "dw_streamed": 2 * layers,
+        "cvmm": layers}, K, train_cli)
+
+    # --------------------------------------------------------- 10. measurements
+    _print_run("10", fused)
+    lm = build_model(cfg)
+    state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
+                             use_mems=True, batch=TRAIN["batch"], device=dev)
+    prof = _profile_train_step("10", lm, state, batches[0], make_train_step(lm, opt), dev)
+    del lm, state
+    timings = _time_training_kernels("10", "pallas_fused", K, plans["all experts"],
+                                     inputs(torch.bfloat16, plans["all experts"]),
+                                     n, d, G, E, errs)
+    results["training"] = fused | {"profile": prof, "timings": timings}
+
+    # --------------------------- 11. the unfused rung's kernels vs plain versions
+    # K5 (both operands tile-aligned, slack rows zero) for dW1 and dW2, and
+    # K4 for the unfused forward's w1 and w2 calls, at the training shapes.
+    def unfused_cases(t, p):
+        valid = (p.row_src < n)[:, None]
+        xa = K.gather_rows_plain(t["x"], p.row_src)             # x_pad of the w1 call
+        cases = {"cvmm_dw dW1 = x_pad^T dh_pad": (xa, p.tile_expert, t["dh_dw"] * valid, E),
+                 "cvmm_dw dW2 = u_pad^T dy_pad": (t["u"] * valid, p.tile_expert,
+                                                   K.gather_rows_plain(t["dy_dw"], p.row_src),
+                                                   E)}
+        return [(name, "cvmm_dw", args) for name, args in cases.items()] + [
+            ("cvmm h = x_pad w1 (unfused forward)", "cvmm", (xa, p.tile_expert, t["w1"])),
+            ("cvmm y = u_pad w2 (unfused forward)", "cvmm",
+             (t["u"] * valid, p.tile_expert, t["w2"]))]
+
+    errs11 = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[1]
+        for pkey, plan in plans.items():
+            for name, kernel, args in unfused_cases(inputs(dt, plan), plan):
+                got = getattr(K, kernel)(*args)
+                want = getattr(K, kernel + "_plain")(*args)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                # K5's outputs are float32 sums of identical operands in
+                # either input type, so they get the float32 tolerance.
+                tol = TOL["float32" if kernel == "cvmm_dw" else dn]
+                ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+                if kernel == "cvmm_dw" and pkey == "one expert empty":
+                    ok = ok and bool((got[empty] == 0).all())
+                print(f"[11] {name}, {pkey}, {dn}: max_abs_err {err:.3g} (tol {tol}) "
+                      f"{'ok' if ok else 'BAD'}")
+                if not ok:
+                    fail(f"{name} disagrees with its plain version in {dn} ({pkey})")
+                errs11[(f"{name}, {pkey}", dn)] = err
+    errs.update(errs11)
+    results["phase11"] = {f"{a} {b}": v for (a, b), v in errs11.items()}
+
+    # ---------------- 12. one full-width step on the unfused rung: kernels vs plain
+    phase12 = _step_gates("12", cfg, "pallas", three_steps, K, ops, routing,
+                          cross_rung="pallas_fused")
+    for label, r in phase12.items():
+        fused_kernels = {k_: v for k_, v in r["launches"].items()
+                         if k_ in ("fused_w1", "fused_w2", "dw_streamed") and v}
+        if fused_kernels or not r["launches"]["cvmm_dw"]:
+            fail(f"the pallas rung's step ({label}) launched {r['launches']}")
+    results["phase12"] = phase12
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- 13. the unfused rung's training path
+    with pinned_impl(ops, "pallas"):
+        unfused = _train_main_path("13", argv, dict.fromkeys(K.LAUNCHES, 0) | {
+            "cvmm": 4 * layers, "cvmm_dw": 2 * layers}, K, train_cli,
+            label='ops.set_default_impl("pallas"); ')
+    gap = abs(unfused["last5"] - fused["last5"]) / fused["last5"]
+    print(f"[13] last-5 mean loss {unfused['last5']:.4f} on the pallas rung, "
+          f"{fused['last5']:.4f} on the pallas_fused rung (phase 9, same seed): "
+          f"{100 * gap:.2f}% apart (limit 2%)")
+    if gap > 0.02:
+        fail("the unfused rung's training run strays from the fused rung's")
+
+    # ------------------------------------------------------- 14. measurements
+    _print_run("14", unfused)
+    lm = build_model(cfg)
+    state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
+                             use_mems=True, batch=TRAIN["batch"], device=dev)
+    with pinned_impl(ops, "pallas"):
+        prof = _profile_train_step("14", lm, state, batches[0], make_train_step(lm, opt),
+                                   dev)
+    del lm, state
+    timings += _time_training_kernels("14", "pallas", K, plans["all experts"],
+                                      inputs(torch.bfloat16, plans["all experts"]),
+                                      n, d, G, E, errs)
+    results["training_unfused"] = unfused | {"profile": prof}
+
+    src = "src/repro_torch/kernels/csrc/"
+    meta = {"fused_w1": ("fused_w1 relu+h (forward)", src + "fused_w1.cu",
+                         "src/repro/kernels/cvmm.py:513", fused),
+            "fused_w2": ("fused_w2 (forward)", src + "fused_w2.cu",
+                         "src/repro/kernels/cvmm.py:820", fused),
+            "dw_streamed": ("dw_streamed stream_x (dW1)", src + "dw_streamed.cu",
+                            "src/repro/kernels/cvmm.py:730", fused),
+            "cvmm_dw": ("cvmm_dw dW1 = x_pad^T dh_pad", src + "cvmm_dw.cu",
+                        "src/repro/kernels/cvmm.py:296", unfused)}
+    rows = {}
+    for kernel, (case, source, replaces, run) in meta.items():
+        t = next(t for t in timings if t["case"] == case)
+        rows[kernel] = {"name": kernel, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": run["launches"][kernel],
+                        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                        "shape": t["shape"], "dtype": "bfloat16",
+                        "path": "training, " + ("pallas" if run is unfused
+                                                else "pallas_fused") + " rung"}
+    return {"launches": fused["launches"], "launches_unfused": unfused["launches"],
+            "rows": rows}
+
+
+def _train_main_path(tag, argv, want, K, train_cli, label=""):
+    """Run the trainer in process with every launch count at 0 just before;
+    the loss must be finite and fall, and every step must launch exactly
+    ``want``. Returns the run's numbers."""
+    import numpy as np
+    import torch
+
+    print(f"[{tag}] {label}python -m repro_torch.launch.train {' '.join(argv)}",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    out = train_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    bad_steps = [i for i, l in enumerate(out["launches"]) if l != want]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"[{tag}] launches {launches}; per step {out['launches'][-1]} (expected "
+          f"{want}); steps off that count: {bad_steps}")
+    print(f"[{tag}] loss mean of the first 5 steps {first:.4f}, of the last 5 {last:.4f}")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    if not last < first:
+        fail("the training loss did not fall")
+    if bad_steps:
+        fail(f"training steps {bad_steps} did not run every MoE layer on the kernels")
+    steady = out["step_s"][5:]
+    step_s = float(np.mean(steady))
+    return {"losses": losses, "step_s": out["step_s"], "step_ms": 1e3 * step_s,
+            "step_ms_min": 1e3 * min(steady), "step_ms_max": 1e3 * max(steady),
+            "tokens_per_s": out["tokens_per_step"] / step_s, "max_memory_allocated": peak,
+            "launches": launches, "launches_per_step": out["launches"][-1],
+            "n_params": out["n_params"], "first5": first, "last5": last}
+
+
+def _print_run(tag, run):
+    print(f"[{tag}] step {run['step_ms']:.2f} ms (mean of steps 5-{TRAIN['steps'] - 1}, "
+          f"min {run['step_ms_min']:.2f}, max {run['step_ms_max']:.2f}); "
+          f"{run['tokens_per_s']:.0f} tokens/s; max_memory_allocated "
+          f"{run['max_memory_allocated'] / 2**30:.2f} GiB")
+
+
+def _three_steps_fn(batches, opt, seed, dev):
+    """``three_steps(lm)``: the gradients of the first batch, then 3 train
+    steps from the same initial state; returns (grads by leaf path, losses)."""
+    import torch
+    from repro_torch.common import map_leaves
+    from repro_torch.runtime import init_train_state, make_train_step
 
     def three_steps(lm):
-        """Gradients of the first batch, then 3 train steps from the same
-        initial state; returns (grads by leaf path, losses)."""
         state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
                                  use_mems=True, batch=TRAIN["batch"], device=dev)
         loss, _ = lm.loss(state["params"], batches[0], train=True,
@@ -499,136 +685,119 @@ def _training_slice(seed, dev, gen, K, results):
             state, m = step(state, b, drop)
             losses.append(float(m["loss"]))
         return grads, losses
+    return three_steps
 
-    def compare(ga, gb):
-        """Per-leaf ||ga - gb|| / ||gb||: (worst, its leaf path, median)."""
-        errs = sorted(((torch.linalg.norm((ga[p] - gb[p]).float())
-                        / torch.linalg.norm(gb[p].float()).clamp_min(1e-30)).item(), p)
-                      for p in gb)
-        return errs[-1][0], "/".join(map(str, errs[-1][1])), errs[len(errs) // 2][0]
 
-    phase8 = {}
+def _compare(ga, gb):
+    """Per-leaf ||ga - gb|| / ||gb||: (worst, its leaf path, median)."""
+    import torch
+    errs = sorted(((torch.linalg.norm((ga[p] - gb[p]).float())
+                    / torch.linalg.norm(gb[p].float()).clamp_min(1e-30)).item(), p)
+                  for p in gb)
+    return errs[-1][0], "/".join(map(str, errs[-1][1])), errs[len(errs) // 2][0]
+
+
+def _step_gates(tag, cfg, rung, three_steps, K, ops, routing, cross_rung=None):
+    """Phases 8 and 12: one full-width training step on the sort path's
+    ``rung`` with the kernels, against the same step with the plain versions
+    and the same expert choices.
+
+    The plain runs replay the kernel runs' expert choices, so both route
+    every token alike and differ only in the kernels' arithmetic (left free,
+    summation order flips the top-4 choice of tokens near a tie, which
+    moves whole tokens between experts). The check holds each gradient leaf
+    and the first 3 losses to GRAD_TOL in bf16 at full width with the depth
+    cut to 2, and in float32 at full width and depth. At full depth in
+    bf16, outputs that differ by one ulp in a few elements per kernel call
+    grow through 16 layers forward and back into per-leaf differences
+    above GRAD_TOL, as any two bf16 paths do; there the kernels' gradients
+    are held against float32 plain versions on the same expert choices,
+    with the bf16 plain versions' error against the same run as the
+    yardstick (YARDSTICK). With ``cross_rung``, the float32 step also runs
+    on that rung's kernels with the same choices, each gradient leaf and
+    loss within GRAD_TOL["float32"] of ``rung``'s: two independent kernel
+    sets for one function."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+
+    E = cfg.ffn.n_experts
+    out = {}
     for variant, mode in ((cfg.override(n_layers=2), "fixed"),
                           (cfg.override(dtype="float32"), "fixed"), (cfg, "yardstick")):
         label = f"{variant.dtype}, depth {variant.n_layers}"
         lm = build_model(variant)
         choices = []
         K.reset_launch_counts()
-        with pinned_routing(routing, choices, replay=False):
+        with pinned_impl(ops, rung), pinned_routing(routing, choices, replay=False):
             gk, lk = three_steps(lm)
         step_launches = dict(K.LAUNCHES)
-        with plain_kernels(K), pinned_routing(routing, choices, replay=True):
+        with pinned_impl(ops, rung), plain_kernels(K), \
+                pinned_routing(routing, choices, replay=True):
             gp, lp = three_steps(lm)
-        worst, leaf, median = compare(gk, gp)
+        worst, leaf, median = _compare(gk, gp)
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
         tol = GRAD_TOL[variant.dtype]
-        print(f"[8] {label}, full width, {len(gp)} gradient leaves, same expert "
-              f"choices: worst relative error {worst:.3g} at {leaf}, median "
+        print(f"[{tag}] {rung}, {label}, full width, {len(gp)} gradient leaves, same "
+              f"expert choices: worst relative error {worst:.3g} at {leaf}, median "
               f"{median:.3g}; losses kernels {lk} plain {lp}, worst relative "
               f"{loss_err:.3g} ({f'tol {tol}' if mode == 'fixed' else 'not a check'}); "
               f"launches {step_launches}")
-        phase8[label] = {"worst_grad_rel": worst, "worst_leaf": leaf, "median": median,
-                         "losses_kernels": lk, "losses_plain": lp}
+        out[label] = {"worst_grad_rel": worst, "worst_leaf": leaf, "median": median,
+                      "losses_kernels": lk, "losses_plain": lp,
+                      "launches": step_launches}
         if not all(np.isfinite(lk)):
             fail(f"non-finite loss {lk}")
         if mode == "fixed" and not (worst <= tol and loss_err <= tol):
-            fail(f"{label}: the kernels' training step disagrees with the plain versions'")
+            fail(f"{rung}, {label}: the kernels' training step disagrees with the "
+                 "plain versions'")
+        if cross_rung and variant.dtype == "float32":
+            with pinned_impl(ops, cross_rung), pinned_routing(routing, choices, replay=True):
+                gx, lx = three_steps(lm)
+            cross = _compare(gx, gk)
+            cross_loss = max(abs(a - b) / abs(b) for a, b in zip(lx, lk))
+            print(f"[{tag}] {label}, same expert choices, {cross_rung} kernels against "
+                  f"{rung} kernels: worst relative error {cross[0]:.3g} at {cross[1]}, "
+                  f"median {cross[2]:.3g}; losses {lx}, worst relative {cross_loss:.3g} "
+                  f"(tol {GRAD_TOL['float32']})")
+            out[label]["cross_rung"] = {"rung": cross_rung, "worst": cross[0],
+                                        "leaf": cross[1], "median": cross[2],
+                                        "losses": lx}
+            if not (cross[0] <= GRAD_TOL["float32"]
+                    and cross_loss <= GRAD_TOL["float32"]):
+                fail(f"{label}: the {cross_rung} and {rung} kernels' training steps "
+                     "disagree")
+            del gx
         if mode == "yardstick":
-            with plain_kernels(K), pinned_routing(routing, choices, replay=True):
+            with pinned_impl(ops, rung), plain_kernels(K), \
+                    pinned_routing(routing, choices, replay=True):
                 gf, lf = three_steps(build_model(variant.override(dtype="float32")))
-            kern, lib = compare(gk, gf), compare(gp, gf)
-            print(f"[8] {label}, same expert choices, against float32 plain versions: "
-                  f"kernels worst {kern[0]:.3g} at {kern[1]}, median {kern[2]:.3g}; "
-                  f"bf16 plain versions (cuBLAS) worst {lib[0]:.3g} at {lib[1]}, median "
-                  f"{lib[2]:.3g}; limit {YARDSTICK}x the latter's worst and median; "
-                  f"float32 losses {lf}")
-            phase8[label].update(kernels_vs_f32=kern, plain_bf16_vs_f32=lib,
-                                 losses_f32=lf)
+            kern, lib = _compare(gk, gf), _compare(gp, gf)
+            print(f"[{tag}] {label}, same expert choices, against float32 plain "
+                  f"versions: kernels worst {kern[0]:.3g} at {kern[1]}, median "
+                  f"{kern[2]:.3g}; bf16 plain versions (cuBLAS) worst {lib[0]:.3g} at "
+                  f"{lib[1]}, median {lib[2]:.3g}; limit {YARDSTICK}x the latter's "
+                  f"worst and median; float32 losses {lf}")
+            out[label].update(kernels_vs_f32=kern, plain_bf16_vs_f32=lib, losses_f32=lf)
             if not (kern[0] <= YARDSTICK * lib[0] and kern[2] <= YARDSTICK * lib[2]):
                 fail(f"{label}: the kernels' gradients stray further from float32 than "
                      f"{YARDSTICK}x the bf16 plain versions'")
             del gf
             load = [torch.bincount(c.reshape(-1), minlength=E).max().item() * E / c.numel()
                     for c in choices[:variant.n_layers]]
-            print(f"[8] {label}: rows of the busiest expert over the mean, layer by layer, "
-                  f"first batch: {[round(x, 2) for x in load]}")
-            phase8[label]["expert_load"] = load
-            with plain_kernels(K):
-                free = compare(gk, three_steps(lm)[0])
-            print(f"[8] {label}, each run choosing its own experts: worst relative "
+            print(f"[{tag}] {label}: rows of the busiest expert over the mean, layer by "
+                  f"layer, first batch: {[round(x, 2) for x in load]}")
+            out[label]["expert_load"] = load
+            with pinned_impl(ops, rung), plain_kernels(K):
+                free = _compare(gk, three_steps(lm)[0])
+            print(f"[{tag}] {label}, each run choosing its own experts: worst relative "
                   f"error {free[0]:.3g} at {free[1]}, median {free[2]:.3g} (not a check)")
-            phase8[label]["free_routing"] = free
-        del gk, gp
-    results["phase8"] = phase8
-    del lm                      # phase 9's peak memory is the trainer's own
-    torch.cuda.empty_cache()
-
-    # ------------------------------------------------ 9. the training main path
-    argv = ["--arch", TRAIN["arch"], "--steps", str(TRAIN["steps"]), "--batch",
-            str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--seed", str(seed),
-            "--device", dev.type]
-    print(f"[9] python -m repro_torch.launch.train {' '.join(argv)}", flush=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    out = train_cli.main(argv)
-    torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    losses = out["losses"]
-    layers = cfg.n_layers
-    want = {"fused_w1": 2 * layers, "fused_w2": layers, "dw_streamed": 2 * layers,
-            "cvmm": layers, "gather_rows": 0}
-    bad_steps = [i for i, l in enumerate(out["launches"]) if l != want]
-    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    print(f"[9] launches {launches}; per step {out['launches'][-1]} (expected {want}); "
-          f"steps off that count: {bad_steps}")
-    print(f"[9] loss mean of the first 5 steps {first:.4f}, of the last 5 {last:.4f}")
-    if not all(np.isfinite(losses)):
-        fail(f"non-finite training loss: {losses}")
-    if not last < first:
-        fail("the training loss did not fall")
-    if bad_steps:
-        fail(f"training steps {bad_steps} did not run every MoE layer on the kernels")
-
-    # --------------------------------------------------------- 10. measurements
-    steady = out["step_s"][5:]
-    step_s = float(np.mean(steady))
-    tok_s = out["tokens_per_step"] / step_s
-    print(f"[10] step {1e3 * step_s:.2f} ms (mean of steps 5-{TRAIN['steps'] - 1}, "
-          f"min {1e3 * min(steady):.2f}, max {1e3 * max(steady):.2f}); "
-          f"{tok_s:.0f} tokens/s; max_memory_allocated {peak / 2**30:.2f} GiB")
-    lm = build_model(cfg)
-    state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
-                             use_mems=True, batch=TRAIN["batch"], device=dev)
-    prof = _profile_train_step(lm, state, batches[0], make_train_step(lm, opt), dev)
-    timings = _time_training_kernels(K, plans["all experts"], inputs(torch.bfloat16,
-                                     plans["all experts"]), n, d, G, E, errs)
-    results["training"] = {"losses": losses, "step_s": out["step_s"], "tokens_per_s": tok_s,
-                           "max_memory_allocated": peak, "launches": launches,
-                           "launches_per_step": out["launches"][-1], "profile": prof,
-                           "timings": timings, "n_params": out["n_params"]}
-
-    src = "src/repro_torch/kernels/csrc/"
-    meta = {"fused_w1": ("fused_w1 relu+h (forward)", src + "fused_w1.cu",
-                         "src/repro/kernels/cvmm.py:513"),
-            "fused_w2": ("fused_w2 (forward)", src + "fused_w2.cu",
-                         "src/repro/kernels/cvmm.py:820"),
-            "dw_streamed": ("dw_streamed stream_x (dW1)", src + "dw_streamed.cu",
-                            "src/repro/kernels/cvmm.py:730")}
-    rows = {}
-    for kernel, (case, source, replaces) in meta.items():
-        t = next(t for t in timings if t["case"] == case)
-        rows[kernel] = {"name": kernel, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[kernel],
-                        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                        "shape": t["shape"], "dtype": "bfloat16", "path": "training"}
-    return {"launches": launches, "rows": rows}
+            out[label]["free_routing"] = free
+        del gk, gp, lm
+    return out
 
 
-def _profile_train_step(lm, state, batch, step, dev):
+def _profile_train_step(tag, lm, state, batch, step, dev):
     """One full-width training step under torch.profiler: wall time, device
     busy share, and the kernels that take the time."""
     import torch
@@ -648,10 +817,11 @@ def _profile_train_step(lm, state, batch, step, dev):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     n_launch = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    print(f"[10] profiled training step: {wall_ms:.2f} ms wall, device busy "
+    print(f"[{tag}] profiled training step: {wall_ms:.2f} ms wall, device busy "
           f"{busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f}% ({n_launch} kernel launches)")
     for e in top:
-        print(f"[10]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
     ours = {}
     for e in kernels:           # this port's kernels, by their CUDA symbols
         name = _port_kernel(e.key)
@@ -659,7 +829,8 @@ def _profile_train_step(lm, state, batch, step, dev):
             n, ms = ours.get(name, (0, 0.0))
             ours[name] = (n + e.count, ms + e.self_device_time_total / 1e3)
     for name, (n, ms) in sorted(ours.items()):
-        print(f"[10]   {name}: {n} launches, {ms:.3f} ms in the step, {ms / n:.4f} ms each")
+        print(f"[{tag}]   {name}: {n} launches, {ms:.3f} ms in the step, "
+              f"{ms / n:.4f} ms each")
     if busy_ms <= 0:
         fail("the profiler saw no device time in the training step")
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernel_launches": n_launch,
@@ -670,9 +841,12 @@ def _profile_train_step(lm, state, batch, step, dev):
 def _port_kernel(symbol):
     """Which of this port's bf16 kernels a profiled CUDA symbol is, or None.
     K1, K2 and K4 are instances of row_gemm_bf16<BN, GATHER, GLU, SAVE, GATE>
-    (csrc/row_gemm.cuh): K1 gathers, K2 applies the gate, K4 does neither."""
-    if "dw_bf16" in symbol:
-        return "K3 dw_streamed"
+    (csrc/row_gemm.cuh): K1 gathers, K2 applies the gate, K4 does neither.
+    K3 and K5 are instances of dw_bf16<OPERANDS, GATE> (csrc/dw_gemm.cuh):
+    K5 gathers neither operand (OPERANDS 0)."""
+    if "dw_bf16<" in symbol:
+        operands = symbol.split("dw_bf16<", 1)[1].split(",", 1)[0].strip()
+        return "K5 cvmm_dw" if operands.endswith("0") else "K3 dw_streamed"
     if "row_gemm_bf16<" not in symbol:
         return None
     args = symbol.split("row_gemm_bf16<", 1)[1].split(">", 1)[0]
@@ -681,8 +855,10 @@ def _port_kernel(symbol):
             else "K4 cvmm")
 
 
-def _time_training_kernels(K, plan, t, n, d, g, E, errs):
-    """Each training kernel at the step's shapes (bf16), with CUDA events,
+def _time_training_kernels(tag, rung, K, plan, t, n, d, g, E, errs):
+    """Each training kernel of the sort path's ``rung`` ("pallas_fused": K1,
+    K2, K3, K4 dX; "pallas": K5, K4 forward) at the step's shapes (bf16),
+    with CUDA events,
     beside its bound, its plain version and a torch.bmm yardstick on the
     expert-major padded layout (rows grouped per expert, each group padded
     to the largest). Bounds count what the function needs, not the padded
@@ -710,6 +886,7 @@ def _time_training_kernels(K, plan, t, n, d, g, E, errs):
 
     xg = K.gather_rows_plain(t["x"], rs)
     dyg = K.gather_rows_plain(t["dy"], rs)
+    ua, dha = t["u"] * valid[:, None], t["dh"] * valid[:, None]   # slack rows zero
     xe, dye = expert_major(xg), expert_major(dyg)
     ue, dhe = expert_major(t["u"]), expert_major(t["dh"])
     w1t = t["w1"].transpose(1, 2).contiguous()
@@ -721,7 +898,7 @@ def _time_training_kernels(K, plan, t, n, d, g, E, errs):
     idx = rows * 4 + te.numel() * 4     # row_src of the routed rows, tile_expert
     gates = rows * 4
     flops = 2 * rows * d * g
-    specs = [
+    fused_specs = [
         ("fused_w1 relu+h (forward)",
          lambda: K.fused_w1(t["x"], rs, te, t["w1"], act="relu", save_preact=True),
          lambda: K.fused_w1_plain(t["x"], rs, te, t["w1"], act="relu", save_preact=True),
@@ -756,6 +933,33 @@ def _time_training_kernels(K, plan, t, n, d, g, E, errs):
          lambda: torch.bmm(dhe, w1t),
          routed_g + w_bf16 + routed_d + te.numel() * 4, ("cvmm dX = dh w1^T", "bfloat16")),
     ]
+    unfused_specs = [
+        ("cvmm_dw dW1 = x_pad^T dh_pad",
+         lambda: K.cvmm_dw(xg, te, dha, E),
+         lambda: K.cvmm_dw_plain(xg, te, dha, E),
+         lambda: torch.bmm(xe.transpose(1, 2), dhe),
+         routed_d + routed_g + w_f32 + te.numel() * 4,
+         ("cvmm_dw dW1 = x_pad^T dh_pad, one expert empty", "bfloat16")),
+        ("cvmm_dw dW2 = u_pad^T dy_pad",
+         lambda: K.cvmm_dw(ua, te, dyg, E),
+         lambda: K.cvmm_dw_plain(ua, te, dyg, E),
+         lambda: torch.bmm(ue.transpose(1, 2), dye),
+         routed_g + routed_d + w_f32 + te.numel() * 4,
+         ("cvmm_dw dW2 = u_pad^T dy_pad, one expert empty", "bfloat16")),
+        ("cvmm h = x_pad w1 (unfused forward)",
+         lambda: K.cvmm(xg, te, t["w1"]),
+         lambda: K.cvmm_plain(xg, te, t["w1"]),
+         lambda: torch.bmm(xe, t["w1"]),
+         routed_d + w_bf16 + routed_g + te.numel() * 4,
+         ("cvmm h = x_pad w1 (unfused forward), all experts", "bfloat16")),
+        ("cvmm y = u_pad w2 (unfused forward)",
+         lambda: K.cvmm(ua, te, t["w2"]),
+         lambda: K.cvmm_plain(ua, te, t["w2"]),
+         lambda: torch.bmm(ue, t["w2"]),
+         routed_g + w_bf16 + routed_d + te.numel() * 4,
+         ("cvmm y = u_pad w2 (unfused forward), all experts", "bfloat16")),
+    ]
+    specs = fused_specs if rung == "pallas_fused" else unfused_specs
     shape = (f"N {n} x top-{rows // n}, M_pad {m_pad}, d {d} (K_pad {k_pad}), G {g}, "
              f"E {E}")
     out = []
@@ -766,7 +970,7 @@ def _time_training_kernels(K, plan, t, n, d, g, E, errs):
                "bound_ms": 1e3 * max(bb, bf), "bound_by": "bytes" if bb >= bf else "operations",
                "bound_bytes": nbytes, "bound_flops": flops, "max_abs_err": errs[err_key]}
         out.append(row)
-        print(f"[10] {case} bf16: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        print(f"[{tag}] {case} bf16: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"library (torch.bmm) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
     return out
@@ -783,7 +987,7 @@ def _leaves(tree):
         yield tree
 
 
-KERNELS = ("cvmm", "gather_rows", "fused_w1", "fused_w2", "dw_streamed")
+KERNELS = ("cvmm", "gather_rows", "fused_w1", "fused_w2", "dw_streamed", "cvmm_dw")
 
 
 @contextmanager
@@ -808,6 +1012,16 @@ def pinned_routing(routing, choices: list, replay: bool):
         yield
     finally:
         routing.top_k = orig
+
+
+@contextmanager
+def pinned_impl(ops, impl: str):
+    """Pin the sort path's rung (``ops.set_default_impl``), unpinned after."""
+    ops.set_default_impl(impl)
+    try:
+        yield
+    finally:
+        ops.set_default_impl(None)
 
 
 @contextmanager

@@ -2,20 +2,22 @@
 ``core/dispatch.py``, sort dispatch only).
 
 ``expert_mlp`` runs one MoE layer's experts at a fixed selection. Within
-the "sort" dispatch (the paper's dropless CVMM) the rung comes from
-``resolve_impl``:
+the "sort" dispatch (the paper's dropless CVMM) ``resolve_impl`` names an
+impl and ``ops.plan_sort_kernels`` turns it into the rung, as in the
+reference:
 
   pallas_fused   the fused pipeline (``ops.moe_mlp_fused``): one CvmmPlan
                  per call, K1 and K2 forward, K1, K3 and K4 backward.
-                 "auto" on CUDA, as on the reference's TPU; on the CPU it
-                 runs the kernels' plain versions.
-  pallas         the unfused planned rung: the K4 grouped-GEMM kernel for
-                 w1 (w1g) and w2. Forward only on CUDA: K4 raises under
-                 grad, since its backward (K5) is not ported.
+                 "auto" on CUDA, as on the reference's TPU. An activation
+                 that is not tile-local ("softmax") degrades it to "pallas".
+  pallas         the unfused planned rung (``ops.cvmm_planned``): the gather
+                 and the gate-weighted scatter-add in plain torch, K4 for w1
+                 (w1g) and w2 forward, K4 (dX) and K5 (dW) for each in
+                 backward. Pin it with ``ops.set_default_impl("pallas")``.
   ragged / ref   plain grouped matmuls, the stand-ins for XLA's ragged_dot
                  and the one-hot oracle; "auto" on the CPU. CPU only.
 
-The reference's ``*_interpret`` names select the same rungs here.
+On the CPU the kernel rungs run the kernels' plain versions. The reference's ``*_interpret`` names select the same rungs here.
 
 Serving installs a decode provider (``set_decode_provider``) that claims
 small calls and runs them on a cached routing-free DecodePlan
@@ -36,8 +38,8 @@ from .routing import SelectionInfo
 
 
 def resolve_impl(cfg: FFNConfig, device) -> str:
-    """Per-layer impl knob: cfg.impl, with "auto" deferring to the device's
-    default rung."""
+    """Per-layer impl knob: cfg.impl, with "auto" deferring to the pinned or
+    the device's default rung (``ops.default_impl``)."""
     return kops.default_impl(device) if cfg.impl == "auto" else cfg.impl
 
 
@@ -55,12 +57,16 @@ def _sort_path(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
     to the tokens."""
     n, d = xf.shape
     k = cfg.k
-    impl = resolve_impl(cfg, xf.device).removesuffix("_interpret")
+    impl = resolve_impl(cfg, xf.device)
     if impl in ("einsum", "dense"):
         impl = "ragged"
+    if impl.startswith("pallas"):
+        impl = kops.plan_sort_kernels(impl, d, cfg.expert_size, cfg.activation,
+                                      xf.dtype, glu=cfg.glu_experts).rung
     if xf.device.type == "cuda" and not impl.startswith("pallas"):
         raise NotImplementedError(
-            f"impl={impl!r} is a plain CPU rung; on CUDA use 'pallas_fused'")
+            f"impl={impl!r} is a plain CPU rung; on CUDA use 'pallas_fused' "
+            "or 'pallas'")
 
     w1 = params["we1"].to(xf.dtype)
     w2 = params["we2"].to(xf.dtype)

@@ -1,5 +1,5 @@
 """CVMM kernels on Hopper: the grouped GEMMs (K1, K2, K4), the expert
-weight gradient (K3) and the row gather (K6).
+weight gradients (K3, K5) and the row gather (K6).
 
 Layout contract (shared with kernels/ops.py, as in the reference's
 ``kernels/cvmm.py``): rows are sorted by expert and each expert's range is
@@ -16,6 +16,8 @@ use N) marks a slack slot, which reads as a zero row.
       replaces ``cvmm_dw_streamed_pallas``; CUDA source ``csrc/dw_streamed.cu``.
   ``cvmm(x_pad, tile_expert, w)``        out[t] = x_pad[t] @ w[tile_expert[t]]
       replaces ``cvmm_pallas``; CUDA source ``csrc/cvmm.cu``.
+  ``cvmm_dw(x_pad, te, g_pad, E)``       dW[e] = sum over e's tiles of x_pad^T g_pad, f32
+      replaces ``cvmm_dw_pallas``; CUDA source ``csrc/cvmm_dw.cu``.
   ``gather_rows(x, row_src, weight)``    out[s] = x[row_src[s]] (* weight[s])
       replaces ``cvmm_gather_rows_pallas``; CUDA source ``csrc/gather_rows.cu``.
 
@@ -23,9 +25,10 @@ Each wrapper takes its plain PyTorch version (``*_plain``) only for tensors
 on the CPU. For a CUDA tensor it launches the kernel on the current stream,
 or raises. A kernel's output has no autograd history, so on CUDA every
 wrapper raises when grad mode is on and an input requires grad: gradients
-come from ``ops.moe_mlp_fused``, whose backward runs K1, K3 and K4; the
-unfused rung's backward (K5, ``cvmm_dw_pallas``) is not ported. ``LAUNCHES``
-counts kernel launches per wrapper; nothing else adds to it.
+come from the autograd Functions of ``kernels/ops.py``, whose backward
+passes launch the kernels themselves (``moe_mlp_fused``: K1, K3, K4;
+``cvmm_planned``: K4, K5). ``LAUNCHES`` counts kernel launches per wrapper;
+nothing else adds to it.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ TM = 128
 LANE = 128
 
 LAUNCHES = {"cvmm": 0, "gather_rows": 0, "fused_w1": 0, "fused_w2": 0,
-            "dw_streamed": 0}
+            "dw_streamed": 0, "cvmm_dw": 0}
 ACTIVATIONS = {"identity": 0, "relu": 1, "gelu": 2, "silu": 3}  # csrc/row_gemm.cuh
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,10 +77,10 @@ def _check_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but a kernel's output has no "
-            "autograd history. Training runs through ops.moe_mlp_fused "
-            "(impl='pallas_fused'), whose backward is K1/K3/K4; the backward "
-            "of this unfused call would need K5 (cvmm_dw_pallas), which is "
-            "not ported yet. Call it under torch.no_grad() for inference.")
+            "autograd history. Differentiate through the autograd Functions "
+            "of kernels/ops.py (ops.moe_mlp_fused, ops.cvmm_planned, "
+            "ops.cvmm), whose backward launches the kernels, or call this "
+            "wrapper under torch.no_grad().")
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -374,4 +377,51 @@ def dw_streamed(x: torch.Tensor, g: torch.Tensor, row_src: torch.Tensor,
             torch.cuda.current_stream(x.device).cuda_stream)
     _launch_status("dw_streamed", rc)
     LAUNCHES["dw_streamed"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5: expert weight gradient over tile-aligned operands
+# ---------------------------------------------------------------------------
+
+def cvmm_dw_plain(x_pad: torch.Tensor, tile_expert: torch.Tensor,
+                  g_pad: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Plain version of ``cvmm_dw``: per-tile x^T g in float32 summed per
+    expert; zeros for an expert with no tiles."""
+    prod = torch.bmm(_tiles(x_pad).transpose(1, 2), _tiles(g_pad))
+    out = torch.zeros((n_experts,) + prod.shape[1:], dtype=torch.float32,
+                      device=x_pad.device)
+    return out.index_add_(0, tile_expert.long(), prod)
+
+
+def cvmm_dw(x_pad: torch.Tensor, tile_expert: torch.Tensor,
+            g_pad: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """x_pad (M_pad, K_pad) and g_pad (M_pad, N_pad) tile-aligned, slack rows
+    zero, in one dtype; tile_expert (M_pad//TM,) int32, non-decreasing.
+    Returns dW (E, K_pad, N_pad) float32, every expert's block written
+    (zeros for an expert with no rows)."""
+    m_pad, k_pad = x_pad.shape
+    n_pad = g_pad.shape[1]
+    if (m_pad % TM or k_pad % LANE or n_pad % LANE or g_pad.shape[0] != m_pad
+            or tile_expert.shape != (m_pad // TM,)):
+        raise ValueError(f"cvmm_dw: bad shapes x {tuple(x_pad.shape)}, g "
+                         f"{tuple(g_pad.shape)}, tile_expert "
+                         f"{tuple(tile_expert.shape)}")
+    if x_pad.dtype not in _DTYPE_CODE or g_pad.dtype != x_pad.dtype:
+        raise ValueError(f"cvmm_dw: dtypes x {x_pad.dtype}, g {g_pad.dtype}; "
+                         "need matching float32 or bfloat16")
+    if _use_plain(x_pad):
+        return cvmm_dw_plain(x_pad, tile_expert, g_pad, n_experts)
+    _check_cuda("cvmm_dw", x_pad, tile_expert, g_pad)
+    if tile_expert.dtype != torch.int32:
+        raise ValueError("cvmm_dw: tile_expert must be int32")
+    out = torch.empty((n_experts, k_pad, n_pad), dtype=torch.float32,
+                      device=x_pad.device)
+    fn = _fn("cvmm_dw", "repro_cvmm_dw", [_C] * 4 + [_I] * 5 + [_C])
+    rc = fn(x_pad.data_ptr(), tile_expert.data_ptr(), g_pad.data_ptr(),
+            out.data_ptr(), m_pad, k_pad, n_pad, n_experts,
+            _DTYPE_CODE[x_pad.dtype],
+            torch.cuda.current_stream(x_pad.device).cuda_stream)
+    _launch_status("cvmm_dw", rc)
+    LAUNCHES["cvmm_dw"] += 1
     return out

@@ -21,9 +21,14 @@ Entry points
                             ``torch.autograd.Function``; gradients reach x,
                             the expert weights and, through the plan's
                             ``gate_tiles``, the router.
-``cvmm_planned``           the sort path's grouped GEMM on a ``CvmmPlan``
-                            (the unfused rung, K4; forward only).
-``cvmm``                   the plain grouped rungs ("ragged", "ref").
+``cvmm_planned``           the unfused rung's grouped GEMM on a ``CvmmPlan``:
+                            forward K4, backward K4 (dX) and K5 (dW), as a
+                            ``torch.autograd.Function``.
+``cvmm``                   the bare grouped matmul on sorted rows: the plain
+                            rungs ("ragged", "ref"), or every "pallas*" name
+                            through ``_tile_layout`` and that Function.
+``plan_sort_kernels``      the sort path's rung for a shape class
+                            (``set_default_impl``/``default_impl`` pin it).
 ``moe_mlp_decode``         serving's decode-shaped MoE MLP on a cached,
                             routing-free ``DecodePlan`` (K6 gather, then K4
                             three times; forward only).
@@ -41,10 +46,24 @@ from . import cvmm as K
 from . import ref as refk
 from .cvmm import LANE, TM
 
+FUSIBLE_ACTIVATIONS = tuple(K.ACTIVATIONS)   # applied in K1's epilogue
+
+_FORCED_IMPL: Optional[str] = None
+
+
+def set_default_impl(impl: Optional[str]) -> None:
+    """Pin the rung that ``impl="auto"`` resolves to (``None`` unpins).
+    Global state: reset it in a ``finally``."""
+    global _FORCED_IMPL
+    _FORCED_IMPL = impl
+
 
 def default_impl(device) -> str:
-    """The sort path's rung: the fused kernels on CUDA, as the reference's
-    TPU default; the plain grouped matmul elsewhere."""
+    """The sort path's rung: the pinned one if any; else the fused kernels
+    on CUDA, as the reference's TPU default, and the plain grouped matmul
+    elsewhere."""
+    if _FORCED_IMPL:
+        return _FORCED_IMPL
     return "pallas_fused" if torch.device(device).type == "cuda" else "ragged"
 
 
@@ -60,6 +79,13 @@ def _pad_lane(a: torch.Tensor, axis: int) -> torch.Tensor:
 
 def _pad_w(w: torch.Tensor) -> torch.Tensor:
     return _pad_lane(_pad_lane(w, 1), 2)
+
+
+def _mask_empty(dw: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """Zero the dW blocks of experts with no rows. The reference's dW
+    kernels never visit them; the port's write zeros there already, so this
+    is kept for parity and changes nothing."""
+    return torch.where((group_sizes > 0)[:, None, None], dw, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -137,22 +163,42 @@ def make_moe_plan(idx: torch.Tensor, n_experts: int,
                     gate_tiles=gate_tiles)
 
 
-def _planned_fwd(x: torch.Tensor, new_pos: torch.Tensor,
-                 tile_expert: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Scatter sorted rows into the tile-aligned layout, run K4, and read
-    the real rows back."""
-    n = w.shape[2]
-    m_pad = tile_expert.shape[0] * TM
-    x_pad = x.new_zeros((m_pad, round_up(x.shape[1], LANE)))
-    x_pad[new_pos] = _pad_lane(x, 1)
-    out_pad = K.cvmm(x_pad, tile_expert, _pad_w(w))
-    return out_pad[new_pos, :n]
+class _CvmmPlanned(torch.autograd.Function):
+    """The reference's ``_cvmm_planned`` custom_vjp (``kernels/ops.py``):
+    forward scatters the sorted rows into the tile-aligned layout and runs
+    K4; backward pads the cotangent the same way and runs K4 on a contiguous
+    w_pad^T for dX and K5 for dW. The residuals are the reference's: the
+    padded rows, the plan arrays and w, so backward recomputes no layout."""
+
+    @staticmethod
+    def forward(ctx, x, new_pos, tile_expert, group_sizes, w):
+        m_pad = tile_expert.shape[0] * TM
+        x_pad = x.new_zeros((m_pad, round_up(x.shape[1], LANE)))
+        x_pad[new_pos] = _pad_lane(x, 1)
+        out_pad = K.cvmm(x_pad, tile_expert, _pad_w(w))
+        ctx.save_for_backward(x_pad, new_pos, tile_expert, group_sizes, w)
+        return out_pad[new_pos, :w.shape[2]]
+
+    @staticmethod
+    def backward(ctx, g):
+        x_pad, new_pos, tile_expert, group_sizes, w = ctx.saved_tensors
+        e, k, n = w.shape
+        g_pad = g.new_zeros((x_pad.shape[0], round_up(n, LANE)))
+        g_pad[new_pos] = _pad_lane(g, 1)
+        w_t = _pad_w(w).transpose(1, 2).contiguous()
+        dx_pad = K.cvmm(g_pad, tile_expert, w_t)
+        dx = dx_pad[new_pos, :k].to(x_pad.dtype)
+        dw = K.cvmm_dw(x_pad, tile_expert, g_pad, e)
+        dw = _mask_empty(dw, group_sizes)[:, :k, :n].to(w.dtype)
+        return dx, None, None, None, dw
 
 
 def cvmm_planned(x: torch.Tensor, plan: CvmmPlan,
                  w: torch.Tensor) -> torch.Tensor:
-    """Grouped matmul on *sorted* rows reusing a precomputed plan."""
-    return _planned_fwd(x, plan.new_pos, plan.tile_expert, w.to(x.dtype))
+    """Grouped matmul on *sorted* rows reusing a precomputed plan (the three
+    calls of an MoE layer share one); differentiable in x and w."""
+    return _CvmmPlanned.apply(x, plan.new_pos, plan.tile_expert,
+                              plan.group_sizes, w.to(x.dtype))
 
 
 def _ragged(x: torch.Tensor, group_sizes: torch.Tensor,
@@ -170,23 +216,86 @@ def _ragged(x: torch.Tensor, group_sizes: torch.Tensor,
 
 
 def cvmm(x: torch.Tensor, group_sizes: torch.Tensor, w: torch.Tensor,
-         impl: str) -> torch.Tensor:
-    """The plain grouped rungs: rows of x (sorted by expert, sizes in
-    group_sizes) times w (E, K, N). Returns (rows, N). The kernel rung runs
-    through a plan instead (``cvmm_planned``)."""
+         impl: Optional[str] = None) -> torch.Tensor:
+    """Grouped matmul: rows of x (sorted by expert, sizes in group_sizes)
+    times w (E, K, N). Returns (rows, N). Every "pallas*" name runs the
+    unfused rung (K4 forward, K4 and K5 backward) on a layout derived here;
+    "ragged" and "ref" are plain torch. ``None`` takes ``default_impl``."""
+    impl = impl or default_impl(x.device)
     if impl == "ragged":
         return _ragged(x, group_sizes, w)
     if impl == "ref":
         return refk.cvmm_ref(x, group_sizes, w)
+    if impl in ("pallas", "pallas_interpret", "pallas_fused",
+                "pallas_fused_interpret"):
+        new_pos, tile_expert, _ = _tile_layout(group_sizes, x.shape[0],
+                                               w.shape[0])
+        return _CvmmPlanned.apply(x, new_pos, tile_expert,
+                                  group_sizes.to(torch.int32), w.to(x.dtype))
     raise ValueError(f"unknown cvmm impl {impl}")
+
+
+# ---------------------------------------------------------------------------
+# The sort path's rung
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SortKernelPlan:
+    """The sort path's execution decision for one shape class: "pallas_fused",
+    "pallas" or "ragged". The reference's plan also carries the tiles of
+    every launch (``FusedTiles``/``PlannedTiles`` from its autotuner); the
+    port's kernels use fixed tiles, so only the rung is here."""
+    rung: str
+
+
+def pallas_supported(d_model: int, expert_size: int,
+                     dtype=torch.float32) -> bool:
+    """Gate for the unfused kernel rung (K4 forward and dX, K5 dW).
+
+    On the TPU the answer is whether every launch finds a tile that fits the
+    VMEM budget. Hopper has no such budget: the kernels stream fixed slices
+    of K and N through shared memory, so they take any width (d_model and
+    expert_size are lane-padded to multiples of 128) in float32 or bfloat16,
+    and nothing else. So the answer differs from the TPU's in two ways: a
+    width too large for VMEM runs the kernels here, and a dtype other than
+    float32 or bfloat16 (float16, say), which the TPU kernels take, goes to
+    the plain "ragged" rung here, which runs on the CPU only."""
+    del d_model, expert_size
+    return dtype in (torch.float32, torch.bfloat16)
+
+
+def fused_supported(n_tokens: int, d_model: int, expert_size: int,
+                    activation: str, dtype=torch.float32,
+                    glu: bool = False) -> bool:
+    """Gate for the fused rung (K1, K2 forward; K1, K3, K4 backward): the
+    activation must be tile-local (one of ``FUSIBLE_ACTIVATIONS``, applied
+    in K1's epilogue; "softmax" spans a row's experts and is not), and the
+    kernels must take the shapes and dtype (``pallas_supported``). The
+    token count never matters: K1 and K3 read rows through ``row_src``."""
+    del n_tokens, glu
+    return (activation in FUSIBLE_ACTIVATIONS
+            and pallas_supported(d_model, expert_size, dtype))
+
+
+def plan_sort_kernels(impl: str, d_model: int, expert_size: int,
+                      activation: str, dtype=torch.float32,
+                      glu: bool = False) -> SortKernelPlan:
+    """Resolve the sort path's rung in one place, as the reference does:
+    a non-"pallas*" impl is "ragged"; "pallas*" degrades to "ragged" when
+    the kernels do not take the shapes (``pallas_supported``); "pallas_fused*"
+    runs fused when ``fused_supported`` and else the unfused "pallas" rung."""
+    if not impl.startswith("pallas") or not pallas_supported(
+            d_model, expert_size, dtype):
+        return SortKernelPlan(rung="ragged")
+    if impl.startswith("pallas_fused") and fused_supported(
+            0, d_model, expert_size, activation, dtype, glu):
+        return SortKernelPlan(rung="pallas_fused")
+    return SortKernelPlan(rung="pallas")
 
 
 # ---------------------------------------------------------------------------
 # Fused MoE-MLP pipeline (gather -> grouped GEMM -> epilogue), with backward
 # ---------------------------------------------------------------------------
-
-FUSIBLE_ACTIVATIONS = tuple(K.ACTIVATIONS)
-
 
 def _scatter_rows(rows: torch.Tensor, row_src: torch.Tensor, n: int,
                   width: int, dtype: torch.dtype) -> torch.Tensor:

@@ -10,6 +10,18 @@ sees ``--seq`` next-token targets), and XL memories carried across steps.
 Parameters come from ``--seed``, dropout from ``--seed + 1``. Every step's
 loss is printed with its wall time (the step ends in a host read of the
 loss); kernel launches per step are printed once at the end.
+
+The expert MLPs run on the sort path's rung for the device: the fused
+kernels on CUDA (K1, K2; backward K1, K3, K4). As in the reference, which
+has no flag for it, the unfused planned rung (K4 forward; K4 and K5
+backward) is pinned around the call instead:
+
+    ops.set_default_impl("pallas")      # repro_torch.kernels.ops
+    try:
+        main([...])
+    finally:
+        ops.set_default_impl(None)
+
 Checkpointing, resume and multi-device meshes are not ported yet.
 """
 from __future__ import annotations

@@ -85,6 +85,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     rs = torch.tensor([3, 256] + [5] * 126, dtype=torch.int32)
     torch.testing.assert_close(K.gather_rows(x, rs), K.gather_rows_plain(x, rs))
     assert K.gather_rows(x, rs)[1].abs().sum() == 0       # sentinel row
+    torch.testing.assert_close(K.cvmm_dw(x, te, x, 3), K.cvmm_dw_plain(x, te, x, 3))
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
 
 
@@ -96,7 +97,12 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     lambda: K.gather_rows(torch.randn(4, 128), torch.zeros(100, dtype=torch.int32)),
     lambda: K.gather_rows(torch.randn(4, 128).half(),
                           torch.zeros(128, dtype=torch.int32)),
-], ids=["cvmm_rows", "cvmm_dtype", "gather_rows", "gather_dtype"])
+    lambda: K.cvmm_dw(torch.randn(128, 128), torch.zeros(1, dtype=torch.int32),
+                      torch.randn(256, 128), 1),                # rows differ
+    lambda: K.cvmm_dw(torch.randn(128, 128), torch.zeros(1, dtype=torch.int32),
+                      torch.randn(128, 128).bfloat16(), 1),     # dtypes differ
+], ids=["cvmm_rows", "cvmm_dtype", "gather_rows", "gather_dtype", "cvmm_dw_rows",
+        "cvmm_dw_dtype"])
 def test_wrappers_reject_what_the_kernels_do_not_take(call):
     with pytest.raises(ValueError):
         call()

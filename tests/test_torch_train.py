@@ -196,7 +196,7 @@ def test_moe_mlp_fused_inference_saves_nothing_and_matches_ragged_rung():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("call", ["cvmm", "gather_rows", "fused_w1", "fused_w2",
-                                  "dw_streamed"])
+                                  "dw_streamed", "cvmm_dw"])
 def test_kernel_wrappers_refuse_inputs_that_need_grad(call, monkeypatch):
     monkeypatch.setattr(K, "_use_plain", lambda t: False)   # as if on a card
     x = torch.randn(128, 128, requires_grad=True)
@@ -208,8 +208,9 @@ def test_kernel_wrappers_refuse_inputs_that_need_grad(call, monkeypatch):
              "gather_rows": lambda: K.gather_rows(x, rs),
              "fused_w1": lambda: K.fused_w1(x, rs, te, w),
              "fused_w2": lambda: K.fused_w2(x, te, w, gate),
-             "dw_streamed": lambda: K.dw_streamed(x, x, rs, te, 1, stream_x=True)}
-    with pytest.raises(RuntimeError, match="K5"):
+             "dw_streamed": lambda: K.dw_streamed(x, x, rs, te, 1, stream_x=True),
+             "cvmm_dw": lambda: K.cvmm_dw(x, te, x, 1)}
+    with pytest.raises(RuntimeError, match="no autograd history"):
         calls[call]()
     with torch.no_grad(), pytest.raises(ValueError, match="unsupported device"):
         calls[call]()                                   # past the guard
@@ -273,7 +274,7 @@ def test_xl_attention_with_memory_matches_reference(models):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("impl", ["ragged", "pallas_fused"])
+@pytest.mark.parametrize("impl", ["ragged", "pallas_fused", "pallas"])
 def test_loss_with_mems_matches_reference(models, impl):
     jlm, jparams, cfg, params = models
     lm = LM(_with_impl(cfg, impl))
@@ -295,7 +296,7 @@ def test_loss_with_mems_matches_reference(models, impl):
                                    atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("impl", ["pallas_fused", "ragged"])
+@pytest.mark.parametrize("impl", ["pallas_fused", "ragged", "pallas"])
 def test_three_train_steps_match_reference(models, impl):
     jlm, jparams, cfg, params = models
     B, S = 2, 12
