@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero before the result line). 1-6 are the
 serving slice, 7-10 the training slice on the fused rung, 11-14 training on
-the unfused rung:
+the unfused rung, 15-18 K7 and the long-prompt serving run:
 
 1. the card: torch's device name and nvidia-smi's name and power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
@@ -14,7 +14,8 @@ the unfused rung:
    serving path's shapes, in bf16 and float32;
 4. the main path: ``repro_torch.serving.Engine`` serving 8 requests on
    granite-moe-3b-a800m (sort dispatch) at full width and depth, random
-   weights from ``--seed``; every MoE call must run on the two kernels;
+   weights from ``--seed``; every MoE call must run on the two kernels,
+   and every prefill chunk's attention on K7 (none at decode);
 5. end to end, kernels against plain versions: one paged prefill and one
    paged decode step at full width and depth 2; then the Engine's greedy
    tokens against contiguous-cache greedy decoding on the reduced config;
@@ -49,7 +50,27 @@ the unfused rung:
     mean loss within 2 % of phase 9's;
 14. phase 10's measurements of that run, and K5 (and K4's forward calls)
     timed beside the bound, the plain version and ``torch.bmm``;
-15. one ``{"kernels": [...]}`` JSON line, then the device line last.
+15. K7 against its plain version on the card, in bf16 and float32: the
+    reference oracle's five cases, granite-moe's heads at 256-row chunks
+    (offsets 0, 256, 1,280 and serve-long's last two) against a 4,096-key
+    pool, two batch rows with different ``kv_len``, and head size 16; the
+    bf16 gate must also reject a K7 whose softmax scale is 10 % off and one
+    that reads three keys past ``kv_len``;
+16. serve-long: the Engine serving LongBench's multi-document QA as a
+    4k-context model sees it (prompts at its 3,500-token cut, 32 new tokens
+    each, prefill chunks of 256) on granite-moe at full width and depth;
+    exact K7, K4 and K6 counts, wall time, tok/s, peak memory, and one
+    profiled prefill chunk;
+17. end to end, K7 against its plain version: a depth-2 bf16 paged prefill
+    of a 600-token prompt in three chunks (which must also reject a K7 with
+    its softmax scale 10 % off), and a float32 full-depth prefill of a
+    1,024-token prompt in four, with the expert choices pinned;
+18. K7 timed at serve-long's last full prefill chunk beside its bound, its
+    plain version and ``scaled_dot_product_attention`` with K/V cut to
+    ``kv_len`` and a lower-right causal mask (the backend it took named),
+    by CUDA events around back-to-back calls and around calls queued
+    while the device sleeps (the device's time alone);
+19. one ``{"kernels": [...]}`` JSON line, then the device line last.
 
 With ``--out``, the full results (every phase's numbers and the ptxas
 reports) are also written there as JSON.
@@ -59,6 +80,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -86,11 +108,62 @@ YARDSTICK = 1.5
 # float32 plain versions may each be at most this many times the bf16 plain
 # versions' (cuBLAS) against the same float32 run.
 TRAIN = dict(arch="wt103-47m-moe", batch=32, seq=256, steps=30)
+LONG = dict(arch="granite-moe-3b-a800m", requests=64, prompt=3500, max_new=32,
+            max_batch=4, max_len=4096, page_size=16, prefill_chunk=256, burst_steps=8)
+# serve-long (phase 16): retrieval-augmented QA over long documents, where
+# prefill attention, not decode, sets the time to the first token. Lengths
+# from LongBench (Bai et al. 2023, arXiv:2308.14508), multi-document QA
+# (HotpotQA, 2WikiMQA, MuSiQue) as its harness runs a 4k-context model:
+# prompts cut to 3,500 tokens (config/model2maxlen.json), at most 32 new
+# tokens (config/dataset2maxlen.json). max_len is granite's 4,096 context.
+# Each task has 200 requests; 64 keep the script inside half its time limit.
+K7_TOL = {"bfloat16": 3e-2, "float32": 5e-5}
+# K7 against its plain version: the reference oracle's tolerances
+# (tests/test_kernels_flash.py); bf16 also rounds P to bf16 for the P V
+# product, float32 only sums in another order.
+BF16_ULPS, BF16_REL = 4, 1e-2
+# bf16 gates also hold ||got - want|| / ||want|| to BF16_REL and, for K7's
+# own output, |got - want| to BF16_ULPS bf16 ulps of max|want|: K7 and its
+# plain version round the same float32 result to bf16 once, so they differ
+# by an ulp where a rounding lands apart (and by P's bf16 rounding).
+K7_ORACLE = [(2, 128, 128, 4, 2, 128, True), (1, 256, 256, 2, 2, 128, True),
+             (1, 100, 100, 4, 4, 128, True), (2, 128, 128, 4, 2, 128, False),
+             (1, 384, 384, 8, 2, 128, True)]     # (B, Sq, Sk, H, KV, D, causal)
+E2E_TOL = {"bfloat16": 3e-2, "float32": 1e-3}
+# Prefill logits, K7 against its plain version with the same expert
+# choices: bf16 at depth 2 as phase 5; float32 at full depth, 32 layers of
+# float32 sums in another order.
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 numbers (8 significant bits) at |x|."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def close(got, want, tol: float, dn: str, ulps: bool = True):
+    """The gate of phases 15 and 17: finite and allclose at ``tol`` (atol =
+    rtol); in bf16 also BF16_REL normwise and, with ``ulps`` (one kernel's
+    output, rounded once), within BF16_ULPS ulps of max|want|. Returns (ok,
+    max_abs_err, normwise error, a description of the limits)."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    rel = (torch.linalg.norm(g - w) / torch.linalg.norm(w).clamp_min(1e-30)).item()
+    ok = bool(torch.isfinite(g).all()) and torch.allclose(g, w, atol=tol, rtol=tol)
+    lim = f"allclose {tol}"
+    if dn == "bfloat16":
+        ok = ok and rel <= BF16_REL
+        lim += f", normwise {BF16_REL}"
+        if ulps:
+            top = w.abs().max().item()
+            ok = ok and err <= BF16_ULPS * bf16_ulp(top)
+            lim += f", {BF16_ULPS} ulps of max|want| {top:.3g} = {BF16_ULPS * bf16_ulp(top):.3g}"
+    return ok, err, rel, lim
 
 
 def main() -> None:
@@ -106,10 +179,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     from repro_torch.configs import get_config, reduced
-    from repro_torch.core import dispatch
-    from repro_torch.kernels import build, cvmm as K, ops
+    from repro_torch.kernels import build, cvmm as K, flash_attention as K7, ops
     from repro_torch.models import LM, build_model
-    from repro_torch.serving import DecodePlanCache, Engine, Request, make_provider
+    from repro_torch.serving import Engine, Request
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -227,14 +299,18 @@ def main() -> None:
           f"{n_tok / wall:.1f} tok/s; max_memory_allocated {peak / 2**30:.2f} GiB")
     print(f"[4] engine stats {stats}; decode plans {plan_counters}")
     moe_calls = cfg.n_layers * (stats["decode_steps"] + stats["prefill_chunks"])
+    attn_calls = cfg.n_layers * stats["prefill_chunks"]
     print(f"[4] launches {launches}; MoE calls {moe_calls} -> expected cvmm "
-          f"{3 * moe_calls}, gather_rows {moe_calls}")
+          f"{3 * moe_calls}, gather_rows {moe_calls}; prefill attention calls "
+          f"{attn_calls} -> expected flash_attention {attn_calls}")
     if len(outs) != 8 or any(len(v) != 32 for v in outs.values()):
         fail(f"engine did not complete every request: {[len(v) for v in outs.values()]}")
     if any(not 0 <= t < cfg.vocab_size for v in outs.values() for t in v):
         fail("engine emitted a token outside the vocabulary")
     if launches["cvmm"] != 3 * moe_calls or launches["gather_rows"] != moe_calls:
         fail(f"main path did not run every MoE call on the kernels: {launches}")
+    if launches["flash_attention"] != attn_calls:
+        fail(f"main path did not run every prefill attention call on K7: {launches}")
     results["engine"] = {"requests": len(outs), "tokens": n_tok, "wall_s": wall,
                          "tok_per_s": n_tok / wall, "max_memory_allocated": peak,
                          "stats": stats, "plan_cache": plan_counters,
@@ -255,12 +331,9 @@ def main() -> None:
 
     def prefill_and_decode():
         cache = lm2.init_paged_cache(1 + 8 * 8, 16, device=dev)
-        dispatch.set_decode_provider(make_provider(DecodePlanCache(), max_tokens=32))
-        try:
+        with _decode_plans(32):
             lp, cache = lm2.prefill_paged(p2, prompt, cache, tables[:1], 0, 32)
             ld, _ = lm2.decode_step_paged(p2, cache, dec_tok, dec_pos, tables)
-        finally:
-            dispatch.set_decode_provider(None)
         return lp, ld
 
     got = prefill_and_decode()
@@ -333,7 +406,11 @@ def main() -> None:
     # ------------------------------------------------ 7-14. the training slice
     train = _training_slice(args.seed, dev, gen, K, results)
 
-    # ------------------------------------------------------------ 15. report
+    # -------------------------------------------- 15-18. K7 and serve-long
+    k7_row = _long_prompt_slice(args.seed, dev, gen, K, K7, results)
+    k7_row["launches_serve"] = launches["flash_attention"]
+
+    # ------------------------------------------------------------ 19. report
     def row(kernel, shape, source, replaces):
         t = next(t for t in timings if t["kernel"] == kernel and t["shape"] == shape
                  and t["dtype"] == "bfloat16")
@@ -352,7 +429,7 @@ def main() -> None:
         train["rows"]["dw_streamed"], k4, train["rows"]["cvmm_dw"],
         row("gather_rows", f"n 8 d {D} into 128 rows",
             "src/repro_torch/kernels/csrc/gather_rows.cu",
-            "src/repro/kernels/cvmm.py:621")]}
+            "src/repro/kernels/cvmm.py:621"), k7_row]}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1, default=str))
@@ -618,6 +695,300 @@ def _training_slice(seed, dev, gen, K, results):
             "rows": rows}
 
 
+def _long_prompt_slice(seed, dev, gen, K, K7, results):
+    """Phases 15-18: K7 against its plain version, serve-long, prefill logits
+    with K7 against plain versions, and K7's timing. Returns K7's row of the
+    kernels line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core import routing
+    from repro_torch.models import LM
+    from repro_torch.serving import Engine, Request
+
+    cfg = get_config(LONG["arch"])
+    cfg = cfg.with_ffn(dataclasses.replace(cfg.ffn, dispatch="sort"))
+    H, KV, Dh = cfg.attention.n_heads, cfg.attention.n_kv_heads, cfg.attention.head_dim
+    chunk, pool, ps = LONG["prefill_chunk"], LONG["max_len"], LONG["page_size"]
+    last = (LONG["prompt"] // chunk - 1) * chunk   # 3072: the prompt's last full chunk
+    tail = last + chunk                            # 3328: its last, partial chunk
+    layers = cfg.n_layers
+
+    def qkv(b, sq, sk, h, kv, d, dt):
+        return [torch.randn(shape, generator=gen, device=dev).to(dt)
+                for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
+
+    def k7_args(causal, d, off, kv_len):
+        return dict(causal=causal, scale=d ** -0.5, q_offset=off,
+                    kv_len=None if kv_len is None else torch.tensor(kv_len, device=dev))
+
+    # ------------------------------------------ 15. K7 against its plain version
+    cases = ([(f"oracle {i}", b, sq, sk, h, kv, d, c, 0, None)
+              for i, (b, sq, sk, h, kv, d, c) in enumerate(K7_ORACLE)]
+             + [(f"granite chunk at {off}", 1, chunk, pool, H, KV, Dh, True, off,
+                 (min(off + chunk, LONG["prompt"]),)) for off in (0, chunk, 1280, last, tail)]
+             + [("granite B 2", 2, chunk, pool, H, KV, Dh, True, 512, (300, 768)),
+                ("head size 16", 1, 100, 300, 4, 2, 16, True, 64, (164,))])
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[1]
+        for label, b, sq, sk, h, kv, d, causal, off, kl in cases:
+            q, k, v = qkv(b, sq, sk, h, kv, d, dt)
+            kw = k7_args(causal, d, off, kl)
+            got, want = K7.flash_attention(q, k, v, **kw), K7.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            ok, err, rel, lim = close(got, want, K7_TOL[dn], dn)
+            print(f"[15] flash_attention {label}: B {b} Sq {sq} Sk {sk} heads {h}/{kv} "
+                  f"D {d} causal {causal} q_offset {off} kv_len {kl} {dn}: max_abs_err "
+                  f"{err:.3g}, normwise {rel:.3g} ({lim}) {'ok' if ok else 'BAD'}")
+            if not ok:
+                fail(f"flash_attention disagrees with its plain version ({label}, {dn})")
+            errs[(label, dn)] = {"max_abs_err": err, "limit": lim, "normwise": rel}
+    # The bf16 gate must reject a subtly wrong K7: a softmax scale 10 % off, or
+    # three keys read past kv_len (only the B 2 case's first row has keys
+    # there that the causal mask lets through).
+    for label, fault, b, off, kl in ((f"granite chunk at {last}", "scale x 1.1", 1, last,
+                                      (last + chunk,)),
+                                     ("granite B 2", "kv_len + 3", 2, 512, (300, 768))):
+        q, k, v = qkv(b, chunk, pool, H, KV, Dh, torch.bfloat16)
+        kw = k7_args(True, Dh, off, kl)
+        bad = (dict(kw, scale=kw["scale"] * 1.1) if fault.startswith("scale")
+               else dict(kw, kv_len=kw["kv_len"] + 3))
+        ok, err, rel, lim = close(K7.flash_attention(q, k, v, **bad),
+                                  K7.flash_attention_plain(q, k, v, **kw),
+                                  K7_TOL["bfloat16"], "bfloat16")
+        print(f"[15] faulty K7 ({fault}) at {label} bfloat16: max_abs_err {err:.3g}, "
+              f"normwise {rel:.3g} ({lim}): "
+              f"{'PASSED, the gate is too loose' if ok else 'rejected'}")
+        if ok:
+            fail(f"the bf16 gate let a faulty K7 ({fault}) through")
+        errs[(label, f"bfloat16 {fault}")] = {"max_abs_err": err, "limit": lim,
+                                              "normwise": rel, "rejected": not ok}
+    results["phase15"] = {f"{a} {b}": e for (a, b), e in errs.items()}
+
+    # --------------------------------------------------------- 16. serve-long
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    params = lm.serving_params(lm.init(torch.Generator(device=dev).manual_seed(seed),
+                                       device=dev))
+    torch.cuda.synchronize()
+    print(f"[16] serve-long: {cfg.name} sort dispatch, {layers} layers, d_model "
+          f"{cfg.d_model}, {lm.dtype}; init {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(seed)
+    lens = [LONG["prompt"]] * LONG["requests"]
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, size=n).tolist(),
+                    max_new=LONG["max_new"]) for i, n in enumerate(lens)]
+    engine_kw = dict(max_batch=LONG["max_batch"], max_len=pool, page_size=ps,
+                     burst_steps=LONG["burst_steps"], prefill_chunk=chunk, device=dev)
+    with Engine(lm, params, **engine_kw) as eng:     # warm-up: lazy inits
+        eng.run([Request(rid="warm", prompt=list(range(1, chunk + chunk // 2)), max_new=2)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with Engine(lm, params, **engine_kw) as eng:
+        outs = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        stats = dict(eng.stats)
+    peak = torch.cuda.max_memory_allocated()
+    chunks = sum(-(-n // chunk) for n in lens)
+    moe_calls = layers * (stats["decode_steps"] + stats["prefill_chunks"])
+    want = dict.fromkeys(K.LAUNCHES, 0) | {"cvmm": 3 * moe_calls, "gather_rows": moe_calls,
+                                           "flash_attention": layers * chunks}
+    n_tok, n_prompt = sum(len(v) for v in outs.values()), sum(lens)
+    print(f"[16] {len(lens)} prompts of {LONG['prompt']} tokens ({n_prompt} in all), "
+          f"{LONG['max_new']} new tokens each: "
+          f"{len(outs)} requests, {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} tok/s "
+          f"generated, {(n_prompt + n_tok) / wall:.1f} tok/s prompt and generated; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    print(f"[16] engine stats {stats}; launches {launches} (expected {want})")
+    if len(outs) != len(reqs) or any(len(v) != LONG["max_new"] for v in outs.values()):
+        fail(f"serve-long did not complete every request: {[len(v) for v in outs.values()]}")
+    if any(not 0 <= t < cfg.vocab_size for v in outs.values() for t in v):
+        fail("serve-long emitted a token outside the vocabulary")
+    if stats["prefill_chunks"] != chunks or launches != want:
+        fail(f"serve-long did not run every call on its kernels: {launches}")
+    results["serve_long"] = {
+        "prompt_lens": lens, "requests": len(outs), "tokens": n_tok, "wall_s": wall,
+        "tok_per_s": n_tok / wall, "prompt_and_generated_per_s": (n_prompt + n_tok) / wall,
+        "max_memory_allocated": peak, "stats": stats, "launches": launches,
+        "prefill_chunk": _profile_prefill_chunk(lm, params, dev, last, chunk, pool, ps, rng)}
+    del params, eng
+    torch.cuda.empty_cache()
+
+    # ----------------------- 17. end to end: prefill logits, K7 vs plain versions
+    def prefill(m, p, prompt):
+        n_pages = -(-len(prompt) // chunk) * chunk // ps
+        cache = m.init_paged_cache(1 + n_pages, ps, device=dev)
+        table = torch.arange(1, 1 + n_pages, dtype=torch.int32, device=dev)[None]
+        logits = []
+        with _decode_plans(chunk), torch.no_grad():
+            for start in range(0, len(prompt), chunk):
+                ln = min(chunk, len(prompt) - start)
+                tokens = torch.zeros((1, chunk), dtype=torch.int64, device=dev)
+                tokens[0, :ln] = torch.as_tensor(prompt[start:start + ln], device=dev)
+                lg, cache = m.prefill_paged(p, tokens, cache, table, start, ln)
+                logits.append(lg[:, :cfg.vocab_size].float())
+        return logits
+
+    def compare(tag, got, want, dn):
+        """Each chunk's logits through ``close`` with the same argmax; the
+        worst max_abs_err and normwise error, and whether every chunk passed."""
+        worst, worst_rel, all_ok = 0.0, 0.0, True
+        for i, (g, w) in enumerate(zip(got, want)):
+            ok, err, rel, lim = close(g, w, E2E_TOL[dn], dn, ulps=False)
+            same = bool((g.argmax(-1) == w.argmax(-1)).all())
+            print(f"[17] {tag} chunk {i} (start {i * chunk}): logits max_abs_err {err:.3g}, "
+                  f"normwise {rel:.3g} ({lim}; max|want| {w.abs().max().item():.3g}), "
+                  f"same argmax {same} {'ok' if ok and same else 'BAD'}")
+            all_ok = all_ok and ok and same
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        return worst, worst_rel, all_ok
+
+    def gate(tag, m, p, n_tokens, dn):
+        prompt = rng.integers(1, cfg.vocab_size, size=n_tokens).tolist()
+        choices = []
+        K.reset_launch_counts()
+        with pinned_routing(routing, choices, replay=False):
+            got = prefill(m, p, prompt)
+        n_k7 = K.LAUNCHES["flash_attention"]
+        with plain_kernels(K), pinned_routing(routing, choices, replay=True):
+            want = prefill(m, p, prompt)
+        worst, worst_rel, ok = compare(f"{tag}, K7 vs plain", got, want, dn)
+        if not ok:
+            fail(f"{tag}: prefill with K7 disagrees with the plain versions")
+        if n_k7 != m.cfg.n_layers * len(got):
+            fail(f"{tag}: {n_k7} K7 launches, expected {m.cfg.n_layers * len(got)}")
+        out = {"max_abs_err": worst, "normwise": worst_rel}
+        if dn == "bfloat16":      # the gate must reject K7 with its scale 10 % off
+            k7 = K7.flash_attention
+
+            def faulty(q, k, v, *, scale, **kw):
+                return k7(q, k, v, scale=scale * 1.1, **kw)
+
+            K7.flash_attention = faulty
+            try:
+                with pinned_routing(routing, choices, replay=True):
+                    bad = prefill(m, p, prompt)
+            finally:
+                K7.flash_attention = k7
+            b_err, b_rel, b_ok = compare(f"{tag}, faulty K7 (scale x 1.1) vs plain",
+                                         bad, want, dn)
+            print(f"[17] {tag}: the faulty K7 is {'PASSED' if b_ok else 'rejected'}")
+            if b_ok:
+                fail(f"{tag}: the bf16 gate let a faulty K7 (scale x 1.1) through")
+            out["faulty_scale_1.1"] = {"max_abs_err": b_err, "normwise": b_rel}
+        return out
+
+    lm2 = LM(cfg.override(n_layers=2))
+    p2 = lm2.serving_params(lm2.init(torch.Generator(device=dev).manual_seed(seed + 1),
+                                     device=dev))
+    results["phase17"] = {"bf16 depth 2, 600 tokens": gate(
+        "bf16 depth 2, 600 tokens", lm2, p2, 600, "bfloat16")}
+    del p2
+    lm32 = LM(cfg.override(dtype="float32"))
+    p32 = lm32.serving_params(lm32.init(torch.Generator(device=dev).manual_seed(seed + 2),
+                                        device=dev))
+    results["phase17"]["float32 full depth, 1024 tokens"] = gate(
+        "float32 full depth, 1024 tokens", lm32, p32, 1024, "float32")
+    del p32
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- 18. K7 at serve-long's last full chunk
+    q, k, v = qkv(1, chunk, pool, H, KV, Dh, torch.bfloat16)
+    kvl = last + chunk
+    kw = k7_args(True, Dh, last, (kvl,))
+    # The library yardstick on a call its fused backends take: K/V cut to
+    # kv_len, where the mask is exactly causal aligned to the lower right.
+    from torch.backends.cuda import (SDPAParams, can_use_efficient_attention,
+                                     can_use_flash_attention)
+    from torch.nn.attention.bias import causal_lower_right
+    qt, kt, vt = q.transpose(1, 2), k[:, :kvl].transpose(1, 2), v[:, :kvl].transpose(1, 2)
+    gqa = can_use_flash_attention(SDPAParams(qt, kt, vt, None, 0.0, False, True))
+    if not gqa:                   # expand the KV heads here, outside the timing
+        kt, vt = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
+    sdpa_params = SDPAParams(qt, kt, vt, None, 0.0, False, gqa)
+    backend = ("flash" if can_use_flash_attention(sdpa_params) else "efficient"
+               if can_use_efficient_attention(sdpa_params) else "math")
+    bias = causal_lower_right(chunk, kvl)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias, scale=Dh ** -0.5,
+                                              enable_gqa=gqa)
+
+    lib_err = (sdpa().transpose(1, 2).float() - K7.flash_attention(q, k, v, **kw).float()
+               ).abs().max().item()
+    pairs = sum(min(kvl, last + i + 1) for i in range(chunk))      # visible (row, key) pairs
+    flops = 4 * Dh * H * pairs                                      # Q K^T and P V
+    nbytes = (2 * q.numel() + 2 * kvl * KV * Dh) * q.element_size() + 8
+    bound_b, bound_f = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
+    shape = (f"B 1 Sq {chunk} at q_offset {last}, kv_len {kvl} of {pool} keys, heads "
+             f"{H}/{KV}, D {Dh}")
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:65",
+           "launches": launches["flash_attention"],
+           "max_abs_err": errs[(f"granite chunk at {last}", "bfloat16")]["max_abs_err"],
+           "ms": _time_ms(lambda: K7.flash_attention(q, k, v, **kw)),
+           "plain_ms": _time_ms(lambda: K7.flash_attention_plain(q, k, v, **kw)),
+           "bound_ms": 1e3 * max(bound_b, bound_f),
+           "bound_by": "bytes" if bound_b >= bound_f else "operations",
+           "library_ms": _time_ms(sdpa), "shape": shape, "dtype": "bfloat16",
+           "path": "serving, serve-long prefill",
+           "device_ms": _device_ms(lambda: K7.flash_attention(q, k, v, **kw)),
+           "library_device_ms": _device_ms(sdpa)}
+    print(f"[18] flash_attention {shape} bfloat16: kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, scaled_dot_product_attention {row['library_ms']:.4f} ms "
+          f"({backend} backend, enable_gqa {gqa}, K/V cut to kv_len, causal_lower_right; "
+          f"vs K7 max_abs_err {lib_err:.3g}), bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); device "
+          f"time alone (calls queued behind a sleep): kernel {row['device_ms']:.4f} ms, "
+          f"scaled_dot_product_attention {row['library_device_ms']:.4f} ms")
+    if lib_err > K7_TOL["bfloat16"]:
+        fail("scaled_dot_product_attention does not compute K7's function here")
+    results["k7_timing"] = row | {"library_vs_kernel_err": lib_err, "bytes": nbytes,
+                                  "flops": flops, "library_backend": backend,
+                                  "library_enable_gqa": gqa}
+    return row
+
+
+@contextmanager
+def _decode_plans(max_tokens: int):
+    """Install a decode-plan provider, as the Engine does, for direct calls."""
+    from repro_torch.core import dispatch
+    from repro_torch.serving import DecodePlanCache, make_provider
+    dispatch.set_decode_provider(make_provider(DecodePlanCache(), max_tokens=max_tokens))
+    try:
+        yield
+    finally:
+        dispatch.set_decode_provider(None)
+
+
+def _profile_prefill_chunk(lm, params, dev, start, chunk, pool, ps, rng):
+    """One full-width paged prefill chunk of ``chunk`` random tokens at
+    ``start`` (mean of 3, host clock around synchronized calls), then one
+    under torch.profiler (``_profile``)."""
+    import torch
+
+    n_pages = pool // ps
+    cache = lm.init_paged_cache(1 + n_pages, ps, device=dev)
+    table = torch.arange(1, 1 + n_pages, dtype=torch.int32, device=dev)[None]
+    tokens = torch.as_tensor(rng.integers(1, lm.cfg.vocab_size, size=(1, chunk)), device=dev)
+
+    def run():
+        with torch.no_grad():
+            lm.prefill_paged(params, tokens, cache, table, start, chunk)
+        torch.cuda.synchronize()
+
+    with _decode_plans(chunk):
+        chunk_ms = _mean_ms(run, 3)
+        print(f"[16] prefill chunk of {chunk} at {start}: {chunk_ms:.2f} ms (mean of 3)")
+        return {"start": start, "chunk_ms": chunk_ms} | _profile("16", "prefill chunk", run)
+
+
 def _train_main_path(tag, argv, want, K, train_cli, label=""):
     """Run the trainer in process with every launch count at 0 just before;
     the loss must be finite and fall, and every step must launch exactly
@@ -798,26 +1169,39 @@ def _step_gates(tag, cfg, rung, three_steps, K, ops, routing, cross_rung=None):
 
 
 def _profile_train_step(tag, lm, state, batch, step, dev):
-    """One full-width training step under torch.profiler: wall time, device
-    busy share, and the kernels that take the time."""
+    """One full-width training step under torch.profiler (``_profile``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=dev).manual_seed(0)
     state, _ = step(state, batch, gen)             # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
+        nonlocal state
         state, m = step(state, batch, gen)
         float(m["loss"])
         torch.cuda.synchronize()
+
+    return _profile(tag, "training step", run, top_n=10)
+
+
+def _profile(tag, label, run, top_n: int = 8):
+    """``run()`` (one synchronized call) once under torch.profiler: wall
+    time, device busy share, the kernels that take the time and this port's
+    kernels among them. Fails when the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     n_launch = sum(e.count for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    print(f"[{tag}] profiled training step: {wall_ms:.2f} ms wall, device busy "
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
+    print(f"[{tag}] profiled {label}: {wall_ms:.2f} ms wall, device busy "
           f"{busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f}% ({n_launch} kernel launches)")
     for e in top:
         print(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
@@ -829,10 +1213,10 @@ def _profile_train_step(tag, lm, state, batch, step, dev):
             n, ms = ours.get(name, (0, 0.0))
             ours[name] = (n + e.count, ms + e.self_device_time_total / 1e3)
     for name, (n, ms) in sorted(ours.items()):
-        print(f"[{tag}]   {name}: {n} launches, {ms:.3f} ms in the step, "
+        print(f"[{tag}]   {name}: {n} launches, {ms:.3f} ms in the {label}, "
               f"{ms / n:.4f} ms each")
     if busy_ms <= 0:
-        fail("the profiler saw no device time in the training step")
+        fail(f"the profiler saw no device time in the {label}")
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernel_launches": n_launch,
             "top": [(e.key, e.count, e.self_device_time_total / 1e3) for e in top],
             "port_kernels": ours}
@@ -843,7 +1227,12 @@ def _port_kernel(symbol):
     K1, K2 and K4 are instances of row_gemm_bf16<BN, GATHER, GLU, SAVE, GATE>
     (csrc/row_gemm.cuh): K1 gathers, K2 applies the gate, K4 does neither.
     K3 and K5 are instances of dw_bf16<OPERANDS, GATE> (csrc/dw_gemm.cuh):
-    K5 gathers neither operand (OPERANDS 0)."""
+    K5 gathers neither operand (OPERANDS 0). K6 is gather_rows_kernel, K7
+    flash_fwd_bf16<D>."""
+    if "gather_rows_kernel" in symbol:
+        return "K6 gather_rows"
+    if "flash_fwd_bf16<" in symbol:
+        return "K7 flash_attention"
     if "dw_bf16<" in symbol:
         operands = symbol.split("dw_bf16<", 1)[1].split(",", 1)[0].strip()
         return "K5 cvmm_dw" if operands.endswith("0") else "K3 dw_streamed"
@@ -987,7 +1376,8 @@ def _leaves(tree):
         yield tree
 
 
-KERNELS = ("cvmm", "gather_rows", "fused_w1", "fused_w2", "dw_streamed", "cvmm_dw")
+KERNELS = ("cvmm", "gather_rows", "fused_w1", "fused_w2", "dw_streamed", "cvmm_dw",
+           "flash_attention")
 
 
 @contextmanager
@@ -1024,61 +1414,57 @@ def pinned_impl(ops, impl: str):
         ops.set_default_impl(None)
 
 
+def kernel_module(K, name: str):
+    """The module that holds kernel ``name``'s wrapper: K7's own, else ``K``
+    (``kernels/cvmm.py``)."""
+    from repro_torch.kernels import flash_attention
+    return flash_attention if name == "flash_attention" else K
+
+
 @contextmanager
 def plain_kernels(K):
     """Route every kernel wrapper to its plain version, for comparison."""
-    saved = {name: getattr(K, name) for name in KERNELS}
+    mods = {name: kernel_module(K, name) for name in KERNELS}
+    saved = {name: getattr(mods[name], name) for name in KERNELS}
     for name in KERNELS:
-        setattr(K, name, getattr(K, name + "_plain"))
+        setattr(mods[name], name, getattr(mods[name], name + "_plain"))
     try:
         yield
     finally:
         for name, fn in saved.items():
-            setattr(K, name, fn)
+            setattr(mods[name], name, fn)
 
 
 def _profile_decode_step(lm, params, dev, batch: int = 8, pos: int = 64):
     """Latency of one full-width paged decode step at ``batch`` lanes (mean
     of 5, host clock around synchronized steps), then one step under
-    torch.profiler: device busy share and the kernels that take the time."""
+    torch.profiler (``_profile``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import dispatch
-    from repro_torch.serving import DecodePlanCache, make_provider
 
     cache = lm.init_paged_cache(1 + batch * 8, 16, device=dev)
     tables = torch.arange(1, 1 + batch * 8, dtype=torch.int32, device=dev).reshape(batch, 8)
     tok = torch.ones(batch, dtype=torch.int64, device=dev)
     positions = torch.full((batch,), pos, device=dev)
-    dispatch.set_decode_provider(make_provider(DecodePlanCache(), max_tokens=batch))
-    try:
-        def step():
-            lm.decode_step_paged(params, cache, tok, positions, tables)
-            torch.cuda.synchronize()
-        step()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            step()
-        step_ms = (time.perf_counter() - t0) / 5 * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        dispatch.set_decode_provider(None)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"[4] decode step, {batch} lanes at position {pos}: {step_ms:.2f} ms "
-          f"(mean of 5); profiled step {wall_ms:.2f} ms wall, device busy "
-          f"{busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f}% "
-          f"({sum(e.count for e in kernels)} kernel launches)")
-    for e in top:
-        print(f"[4]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    return {"batch": batch, "step_ms": step_ms, "profiled_wall_ms": wall_ms,
-            "device_busy_ms": busy_ms, "kernel_launches": sum(e.count for e in kernels),
-            "top": [(e.key, e.count, e.self_device_time_total / 1e3) for e in top]}
+
+    def step():
+        lm.decode_step_paged(params, cache, tok, positions, tables)
+        torch.cuda.synchronize()
+
+    with _decode_plans(batch):
+        step_ms = _mean_ms(step, 5)
+        print(f"[4] decode step, {batch} lanes at position {pos}: {step_ms:.2f} ms "
+              f"(mean of 5)")
+        return {"batch": batch, "step_ms": step_ms} | _profile("4", "decode step", step)
+
+
+def _mean_ms(run, n: int) -> float:
+    """Host time of ``run()`` (synchronized) in ms, mean of ``n`` after one
+    warm-up call."""
+    run()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run()
+    return (time.perf_counter() - t0) / n * 1e3
 
 
 def _greedy(lm, params, prompt, max_new, dev):
@@ -1093,6 +1479,31 @@ def _greedy(lm, params, prompt, max_new, dev):
         out.append(int(lg[0].argmax()))
         pos += 1
     return out
+
+
+def _device_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()`` without the host's share: the device
+    first sleeps while the host queues all ``iters`` calls, so CUDA events
+    around them time the device alone (``_time_ms`` counts the host's gaps
+    between launches when the host is the slower side). Fails if queuing
+    outlasted the sleep."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    slept.record()
+    torch.cuda._sleep(100_000_000)              # about 50 ms at the H100's clocks
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if host_ms >= slept.elapsed_time(start):
+        fail(f"queuing {iters} calls took {host_ms:.1f} ms, longer than the device's sleep")
+    return start.elapsed_time(end) / iters
 
 
 def _time_ms(fn, iters: int = 20) -> float:

@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"cvmm": "cvmm.cu", "gather_rows": "gather_rows.cu",
            "fused_w1": "fused_w1.cu", "fused_w2": "fused_w2.cu",
-           "dw_streamed": "dw_streamed.cu", "cvmm_dw": "cvmm_dw.cu"}
+           "dw_streamed": "dw_streamed.cu", "cvmm_dw": "cvmm_dw.cu",
+           "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -27,8 +27,8 @@ or raises. A kernel's output has no autograd history, so on CUDA every
 wrapper raises when grad mode is on and an input requires grad: gradients
 come from the autograd Functions of ``kernels/ops.py``, whose backward
 passes launch the kernels themselves (``moe_mlp_fused``: K1, K3, K4;
-``cvmm_planned``: K4, K5). ``LAUNCHES`` counts kernel launches per wrapper;
-nothing else adds to it.
+``cvmm_planned``: K4, K5). ``LAUNCHES`` counts kernel launches per wrapper,
+K7's (``kernels/flash_attention.py``) included; nothing else adds to it.
 """
 from __future__ import annotations
 
@@ -43,8 +43,10 @@ from . import build
 TM = 128
 LANE = 128
 
+# K7 (kernels/flash_attention.py) counts here too, so one reset covers
+# every kernel.
 LAUNCHES = {"cvmm": 0, "gather_rows": 0, "fused_w1": 0, "fused_w2": 0,
-            "dw_streamed": 0, "cvmm_dw": 0}
+            "dw_streamed": 0, "cvmm_dw": 0, "flash_attention": 0}
 ACTIVATIONS = {"identity": 0, "relu": 1, "gelu": 2, "silu": 3}  # csrc/row_gemm.cuh
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,17 +72,21 @@ def _use_plain(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def _check_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:
+_GRAD_REMEDY = ("Differentiate through the autograd Functions of kernels/ops.py "
+                "(ops.moe_mlp_fused, ops.cvmm_planned, ops.cvmm), whose "
+                "backward launches the kernels, or call this wrapper under "
+                "torch.no_grad().")
+
+
+def _check_cuda(name: str, *tensors: Optional[torch.Tensor],
+                remedy: str = _GRAD_REMEDY) -> None:
     """Raise unless the tensors can go to a kernel: on one CUDA device,
     contiguous, 16-byte aligned, and not needing a gradient."""
     tensors = [t for t in tensors if t is not None]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but a kernel's output has no "
-            "autograd history. Differentiate through the autograd Functions "
-            "of kernels/ops.py (ops.moe_mlp_fused, ops.cvmm_planned, "
-            "ops.cvmm), whose backward launches the kernels, or call this "
-            "wrapper under torch.no_grad().")
+            f"autograd history. {remedy}")
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")

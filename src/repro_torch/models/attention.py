@@ -3,7 +3,10 @@ online-softmax core, single-token decode attention, the paged KV cache that
 serving uses, and Transformer-XL relative-position attention over a
 detached segment memory (the paper's training architecture).
 
-These are plain tensor ops in the reference too, so they stay plain torch.
+These are plain tensor ops in the reference too, so they stay plain torch,
+with one exception: ``attend`` hands the prefill and no-cache calls that
+need no gradient and have no window to K7 (``kernels/flash_attention.py``,
+whose plain version is the chunked core).
 Cross-attention is not ported yet.
 
 KV caches are updated in place (the reference returns new arrays; its
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import AttentionConfig, ModelConfig
+from ..kernels import flash_attention as k7
 from .layers import apply_rope, rms_norm_simple, sinusoid_positions
 
 
@@ -50,60 +54,33 @@ def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     return x.reshape(b, s, n_heads, head_dim)
 
 
-def _gqa_expand(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q (B,S,H,D) -> (B,S,KV,Grp,D) for grouped-query attention."""
-    b, s, h, dh = q.shape
-    kvh = k.shape[2]
-    return q.reshape(b, s, kvh, h // kvh, dh)
-
-
 # ---------------------------------------------------------------------------
-# Chunked online-softmax core
+# Multi-token attention: K7, or the chunked online-softmax core
 # ---------------------------------------------------------------------------
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, window: int = 0, scale: float,
-                    q_offset=0, kv_chunk: int = 2048,
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B,Sq,H,D), k/v (B,Sk,KV,D) -> (B,Sq,H,D); a loop over KV chunks
-    carrying the online-softmax state, so (Sq, Sk) is never materialized.
+# The chunked core (the reference's ``flash_attention``) is K7's plain version.
+flash_attention = k7.flash_attention_plain
 
-    q_offset: absolute position of q[0] relative to k[0] (int or 0-d tensor).
-    kv_len: optional (B,) valid KV lengths."""
-    b, sq, h, dh = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    grp = h // kvh
-    dev = q.device
-    qg = _gqa_expand(q, k).float()
-    q_pos = q_offset + torch.arange(sq, device=dev)
-    m = torch.full((b, kvh, grp, sq), float("-inf"), device=dev)
-    l = torch.zeros((b, kvh, grp, sq), device=dev)
-    acc = torch.zeros((b, kvh, grp, sq, dh), device=dev)
-    for c0 in range(0, sk, kv_chunk):
-        kb = k[:, c0:c0 + kv_chunk].float()
-        vb = v[:, c0:c0 + kv_chunk].float()
-        k_pos = c0 + torch.arange(kb.shape[1], device=dev)
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kb) * scale
-        mask = torch.ones((sq, kb.shape[1]), dtype=torch.bool, device=dev)
-        if causal:
-            mask &= q_pos[:, None] >= k_pos[None, :]
-        if window:
-            mask &= k_pos[None, :] > q_pos[:, None] - window
-        full = mask[None, None, None]                       # (1,1,1,Sq,C)
-        if kv_len is not None:
-            full = full & (k_pos[None, :] < kv_len[:, None])[:, None, None, None, :]
-        s = s.masked_fill(~full, float("-inf"))
-        m_new = torch.maximum(m, s.amax(-1))
-        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
-        p = torch.exp(s - m_safe[..., None])
-        p = torch.where(torch.isneginf(s), 0.0, p)
-        corr = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
-        l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vb)
-        m = m_new
-    out = acc / torch.clamp(l[..., None], min=1e-20)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
-    return out.to(q.dtype)
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: int, scale: float, q_offset: int = 0,
+           kv_chunk: int = 2048,
+           kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-token attention, ``flash_attention``'s contract with an int
+    ``q_offset``. K7's wrapper takes the call when there is no window (the
+    reference's kernel has none) and no input needs a gradient (K7 has no
+    backward): the Engine's prefill, contiguous prefill and any forward
+    under ``torch.no_grad()``; it launches K7 for CUDA tensors and runs its
+    plain version for CPU ones. Training and windowed calls run the chunked
+    ``flash_attention`` at ``kv_chunk``."""
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if not window and not needs_grad:
+        return k7.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  causal=causal, scale=scale, q_offset=q_offset,
+                                  kv_len=kv_len)
+    return flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                           q_offset=q_offset, kv_chunk=kv_chunk, kv_len=kv_len)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -179,11 +156,10 @@ def paged_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         cv[page, off] = v[0].to(cdt)
         gk = ck[table].reshape(1, -1, *ck.shape[2:])
         gv = cv[table].reshape(1, -1, *cv.shape[2:])
-        out = flash_attention(q, gk.to(q.dtype), gv.to(q.dtype), causal=True,
-                              window=window, scale=scale, q_offset=start,
-                              kv_chunk=kv_chunk,
-                              kv_len=torch.tensor([start + length],
-                                                  device=q.device))
+        out = attend(q, gk.to(q.dtype), gv.to(q.dtype), causal=True,
+                     window=window, scale=scale, q_offset=start,
+                     kv_chunk=kv_chunk,
+                     kv_len=torch.tensor([start + length], device=q.device))
     return out, {"k": ck, "v": cv}
 
 
@@ -273,13 +249,12 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                                    scale=scale, q_pos=idx, window=win,
                                    kv_len=kv_len)
         else:
-            out = flash_attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                                  causal=True, window=win, scale=scale,
-                                  q_offset=idx, kv_chunk=a.kv_chunk,
-                                  kv_len=kv_len)
+            out = attend(q, ck.to(q.dtype), cv.to(q.dtype), causal=True,
+                         window=win, scale=scale, q_offset=idx,
+                         kv_chunk=a.kv_chunk, kv_len=kv_len)
     else:
-        out = flash_attention(q, k, v, causal=a.causal and kind != "noncausal",
-                              window=win, scale=scale, kv_chunk=a.kv_chunk)
+        out = attend(q, k, v, causal=a.causal and kind != "noncausal",
+                     window=win, scale=scale, kv_chunk=a.kv_chunk)
     y = out.reshape(b, s, a.q_dim) @ params["wo"].to(x.dtype)
     return y, new_cache
 

@@ -4,10 +4,13 @@ also runs on a GPU machine without the JAX package:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import pytest
 import torch
 
 from repro_torch.kernels import cvmm as K
+from repro_torch.kernels import flash_attention as K7
 from repro_torch.kernels import ops
 
 pytestmark = pytest.mark.cuda
@@ -197,3 +200,87 @@ def test_unfused_kernel_raises_under_grad(cuda):
         K.cvmm(x, te, w)
     with torch.no_grad():
         assert K.cvmm(x, te, w).shape == (128, 128)
+
+
+# K7 cases: (B, Sq, Sk, H, KV, D, causal, q_offset, kv_len); the oracle's
+# five (tests/test_kernels_flash.py), granite-moe's heads at a 256-row
+# prefill chunk against a 1,552-key pool and at a 3,500-token prompt's last
+# two chunks against a 4,096-key pool, two batch rows with different
+# kv_len, a lane with kv_len 0, and the reduced config's D 16.
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 128, True, 0, None),
+    (1, 256, 256, 2, 2, 128, True, 0, None),
+    (1, 100, 100, 4, 4, 128, True, 0, None),
+    (2, 128, 128, 4, 2, 128, False, 0, None),
+    (1, 384, 384, 8, 2, 128, True, 0, None),
+    (1, 256, 1552, 24, 8, 64, True, 0, (256,)),
+    (1, 256, 1552, 24, 8, 64, True, 256, (512,)),
+    (1, 256, 1552, 24, 8, 64, True, 1280, (1536,)),
+    (1, 256, 4096, 24, 8, 64, True, 3072, (3328,)),
+    (1, 256, 4096, 24, 8, 64, True, 3328, (3500,)),
+    (2, 50, 261, 24, 8, 64, True, 77, (37, 200)),
+    (2, 130, 261, 4, 2, 16, False, 128, (0, 200)),
+    (1, 9, 40, 4, 2, 16, True, 31, None),
+]
+
+
+def _bf16_close(got, want) -> bool:
+    """Within 4 bf16 ulps of max|want| elementwise and 1e-2 normwise: both
+    round the same float32 result to bf16 once (chip_smoke.py's gate)."""
+    g, w = got.float(), want.float()
+    top = w.abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    rel = (torch.linalg.norm(g - w) / torch.linalg.norm(w).clamp_min(1e-30)).item()
+    return (g - w).abs().max().item() <= 4 * ulp and rel <= 1e-2
+
+
+def _flash_inputs(cuda, dtype, case):
+    b, sq, sk, h, kvh, d, causal, q_offset, kv_len = case
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d)))
+    kl = None if kv_len is None else torch.tensor(kv_len, device=cuda)
+    return q, k, v, dict(causal=causal, scale=d ** -0.5, q_offset=q_offset, kv_len=kl)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, case):
+    kv_len = case[-1]
+    q, k, v, kw = _flash_inputs(cuda, dtype, case)
+    before = K.LAUNCHES["flash_attention"]
+    got = K7.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = K7.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        assert _bf16_close(got, want)
+    if kv_len is not None and 0 in kv_len:
+        assert bool((got[kv_len.index(0)] == 0).all())
+
+
+@pytest.mark.parametrize("fault", ["scale", "kv_len"])
+def test_flash_attention_bf16_check_rejects_a_faulty_kernel(cuda, fault):
+    """The bf16 check is tight enough to see a softmax scale 10 % off, or
+    three keys read past kv_len."""
+    q, k, v, kw = _flash_inputs(cuda, torch.bfloat16,
+                                (2, 256, 1552, 24, 8, 64, True, 512, (300, 768)))
+    bad = (dict(kw, scale=kw["scale"] * 1.1) if fault == "scale"
+           else dict(kw, kv_len=kw["kv_len"] + 3))
+    assert not _bf16_close(K7.flash_attention(q, k, v, **bad),
+                           K7.flash_attention_plain(q, k, v, **kw))
+
+
+def test_flash_attention_kernel_raises_under_grad(cuda):
+    q = torch.randn((1, 8, 4, 64), device=cuda, requires_grad=True)
+    k = torch.randn((1, 8, 2, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="forward only"):
+        K7.flash_attention(q, k, k, causal=True, scale=0.125)
+    with torch.no_grad():
+        assert K7.flash_attention(q, k, k, causal=True, scale=0.125).shape == q.shape
+    with pytest.raises(ValueError, match="head size"):
+        K7.flash_attention(q[..., :48].contiguous().detach(), k[..., :48].contiguous(),
+                           k[..., :48].contiguous(), causal=True, scale=0.125)
