@@ -24,7 +24,9 @@ the unfused rung, 15-18 K7 and the long-prompt serving run:
 7. the training kernels (K1 in its four variants, K2, K3 in its three)
    against their plain versions at wt103-47m-moe's training shapes (batch
    32 x 257 tokens, top-4 of 16 experts), in bf16 and float32, with an
-   expert that gets no rows and all-sentinel slack tiles;
+   expert that gets no rows and all-sentinel slack tiles, and K3 also on
+   a skewed plan (one expert with 3x the mean rows, over many of its
+   chunks) where a second call must give the same bits;
 8. one full-width training step with the kernels against the same step with
    the plain versions and the same expert choices, gradient leaf by leaf,
    and the first 3 losses: in bf16 with the depth cut to 2 and in float32
@@ -36,20 +38,24 @@ the unfused rung, 15-18 K7 and the long-prompt serving run:
    in process; the loss must be finite and fall, and every step must launch
    exactly 2 K1, 1 K2, 2 K3 and 1 K4 per MoE layer;
 10. the step's time, tokens/s, peak memory and a profile (device-busy
-    share, top kernels), and each training kernel timed beside its bound,
-    its plain version and a ``torch.bmm`` yardstick;
+    share, top kernels, exactly one K3 device kernel per wrapper call),
+    each training kernel timed by back-to-back events and device alone
+    beside its bound, its plain version and a ``torch.bmm`` yardstick,
+    and K3's three variants on the uniform plan and on the profiled
+    step's own (layer 0's) plan;
 11. the unfused rung's kernels (K5 for dW1 and dW2, K4 for the forward's w1
     and w2 calls) against their plain versions at the training shapes, in
     bf16 and float32, with an expert that gets no rows and all-sentinel
-    slack tiles;
+    slack tiles, and on phase 7's skewed plan (K5 the same bits twice);
 12. phase 8's step on the unfused rung (``ops.set_default_impl("pallas")``)
     with phase 8's three gates, and its float32 full-depth step on the
     unfused kernels against the fused rung's kernels (same expert choices);
 13. phase 9's run on the unfused rung: finite, falling loss, exactly 4 K4
     and 2 K5 per MoE layer every step and no K1, K2 or K3, and a last-5
     mean loss within 2 % of phase 9's;
-14. phase 10's measurements of that run, and K5 (and K4's forward calls)
-    timed beside the bound, the plain version and ``torch.bmm``;
+14. phase 10's measurements of that run (one K5 device kernel per call),
+    K5 (and K4's forward calls) timed beside the bound, the plain version
+    and ``torch.bmm``, and K5 on the uniform and the step's own plan;
 15. K7 against its plain version on the card, in bf16 and float32: the
     reference oracle's five cases, granite-moe's heads at 256-row chunks
     (offsets 0, 256, 1,280 and serve-long's last two) against a 4,096-key
@@ -138,6 +144,13 @@ E2E_TOL = {"bfloat16": 3e-2, "float32": 1e-3}
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def same_bits(a, b) -> bool:
+    """Bit-for-bit equality of two float32 tensors (== would equate -0.0
+    and 0.0)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def bf16_ulp(x: float) -> float:
@@ -457,14 +470,19 @@ def _training_slice(seed, dev, gen, K, results):
         cfg.d_model, cfg.ffn.expert_size
 
     # ------------------------------------- 7. training kernels vs plain versions
-    def draw_plan(skip=None):
+    def draw_plan(skip=None, favour=None):
+        # favour: that expert's keys scaled by 0.3, so about 3x the mean rows
+        # pick it, its tiles spanning many of K3's and K5's chunks
         pool = torch.tensor([e for e in range(E) if e != skip], device=dev)
         keys = torch.rand((n, len(pool)), generator=gen, device=dev)
+        if favour is not None:
+            keys[:, favour] *= 0.3
         idx = pool[torch.argsort(keys, dim=1)[:, :k]]
         return ops.make_moe_plan(idx, E, torch.rand((n, k), generator=gen, device=dev))
 
     empty = E // 2
-    plans = {"all experts": draw_plan(), "one expert empty": draw_plan(skip=empty)}
+    plans = {"all experts": draw_plan(), "one expert empty": draw_plan(skip=empty),
+             "skewed": draw_plan(favour=0)}
     for name, plan in plans.items():
         slack = (plan.row_src.view(-1, 128) >= n).all(1).sum().item()
         print(f"[7] plan '{name}': N {n} x top-{k}, E {E}, M_pad {plan.m_pad}, "
@@ -472,6 +490,12 @@ def _training_slice(seed, dev, gen, K, results):
               f"expert {plan.group_sizes.tolist()}")
         if not slack:
             fail("the plan has no all-sentinel slack tile")
+    rows = plans["skewed"].group_sizes.float()
+    chunks = -(-int(rows.max()) // 128) // K.DW_CHUNK
+    print(f"[7] plan 'skewed': the busiest expert has {rows.max() / rows.mean():.2f}x "
+          f"the mean rows, {chunks}+ of K3's and K5's chunks of {K.DW_CHUNK} tiles")
+    if rows.max() < 2.5 * rows.mean() or chunks < 4:
+        fail("the skewed plan is not skewed")
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -519,19 +543,23 @@ def _training_slice(seed, dev, gen, K, results):
     for variant, stream_x, gated in (("stream_x (dW1)", True, False),
                                      ("stream_g (dW2, no gate)", False, False),
                                      ("stream_g gated (dW2)", False, True)):
-        cases.append((f"dw_streamed {variant}, one expert empty", "dw_streamed",
-                      "one expert empty", lambda t, p, sx=stream_x, gt=gated: [
-                          f(t["x"] if sx else t["u"], t["dh_dw"] if sx else t["dy_dw"],
-                            p.row_src, p.tile_expert, E, stream_x=sx,
-                            gate=p.gate_tiles.reshape(-1) if gt else None)
-                          for f in (K.dw_streamed, K.dw_streamed_plain)]))
+        for pkey, pname in (("one expert empty", "one expert empty"), ("skewed", "skewed")):
+            cases.append((f"dw_streamed {variant}, {pname}", "dw_streamed",
+                          pkey, lambda t, p, sx=stream_x, gt=gated: [
+                              f(t["x"] if sx else t["u"], t["dh_dw"] if sx else t["dy_dw"],
+                                p.row_src, p.tile_expert, E, stream_x=sx,
+                                gate=p.gate_tiles.reshape(-1) if gt else None)
+                              for f in (K.dw_streamed, K.dw_streamed, K.dw_streamed_plain)]))
     errs = {}
     for dt in (torch.bfloat16, torch.float32):
         dn = str(dt).split(".")[1]
         tens = {key: inputs(dt, plan) for key, plan in plans.items()}
         for name, kernel, pkey, fn in cases:
-            got, want = fn(tens[pkey], plans[pkey])
+            outs = fn(tens[pkey], plans[pkey])
+            got, want = outs[0], outs[-1]
             torch.cuda.synchronize()
+            if len(outs) == 3 and not same_bits(outs[0], outs[1]):
+                fail(f"{name} {dn}: two calls on the same inputs gave different bits")
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
@@ -542,10 +570,11 @@ def _training_slice(seed, dev, gen, K, results):
             tol = TOL["float32" if kernel == "dw_streamed" else dn]
             ok = all(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol)
                      for a, b in zip(got, want)) and len(got) == len(want)
-            if kernel == "dw_streamed":
+            if kernel == "dw_streamed" and pkey == "one expert empty":
                 ok = ok and bool((got[0][empty] == 0).all())
             print(f"[7] {name} {dn}: max_abs_err {err:.3g} (tol {tol}), "
-                  f"{100 * differ:.3f}% of elements differ {'ok' if ok else 'BAD'}")
+                  f"{100 * differ:.3f}% of elements differ"
+                  f"{', same bits twice' if len(outs) == 3 else ''} {'ok' if ok else 'BAD'}")
             if not ok:
                 fail(f"{name} disagrees with its plain version in {dn}")
             errs[(name, dn)] = err
@@ -589,12 +618,16 @@ def _training_slice(seed, dev, gen, K, results):
     lm = build_model(cfg)
     state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
                              use_mems=True, batch=TRAIN["batch"], device=dev)
-    prof = _profile_train_step("10", lm, state, batches[0], make_train_step(lm, opt), dev)
+    prof, step_plan = _profile_train_step("10", lm, state, batches[0],
+                                          make_train_step(lm, opt), dev, K, ops)
     del lm, state
-    timings = _time_training_kernels("10", "pallas_fused", K, plans["all experts"],
-                                     inputs(torch.bfloat16, plans["all experts"]),
+    t_bf16 = inputs(torch.bfloat16, plans["all experts"])
+    timings = _time_training_kernels("10", "pallas_fused", K, plans["all experts"], t_bf16,
                                      n, d, G, E, errs)
-    results["training"] = fused | {"profile": prof, "timings": timings}
+    dw_plans = {"uniform": plans["all experts"], "the step's layer 0": step_plan}
+    results["training"] = fused | {"profile": prof, "timings": timings, "dw_on_plans":
+                                   _time_dw_on_plans("10", "pallas_fused", K, dw_plans,
+                                                     t_bf16, n, E)}
 
     # --------------------------- 11. the unfused rung's kernels vs plain versions
     # K5 (both operands tile-aligned, slack rows zero) for dW1 and dW2, and
@@ -619,6 +652,9 @@ def _training_slice(seed, dev, gen, K, results):
                 got = getattr(K, kernel)(*args)
                 want = getattr(K, kernel + "_plain")(*args)
                 torch.cuda.synchronize()
+                if kernel == "cvmm_dw" and pkey == "skewed" and not same_bits(
+                        got, getattr(K, kernel)(*args)):
+                    fail(f"{name} {dn}: two calls on the same inputs gave different bits")
                 err = (got.float() - want.float()).abs().max().item()
                 # K5's outputs are float32 sums of identical operands in
                 # either input type, so they get the float32 tolerance.
@@ -626,7 +662,8 @@ def _training_slice(seed, dev, gen, K, results):
                 ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
                 if kernel == "cvmm_dw" and pkey == "one expert empty":
                     ok = ok and bool((got[empty] == 0).all())
-                print(f"[11] {name}, {pkey}, {dn}: max_abs_err {err:.3g} (tol {tol}) "
+                twice = ", same bits twice" if kernel == "cvmm_dw" and pkey == "skewed" else ""
+                print(f"[11] {name}, {pkey}, {dn}: max_abs_err {err:.3g} (tol {tol}){twice} "
                       f"{'ok' if ok else 'BAD'}")
                 if not ok:
                     fail(f"{name} disagrees with its plain version in {dn} ({pkey})")
@@ -663,13 +700,15 @@ def _training_slice(seed, dev, gen, K, results):
     state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
                              use_mems=True, batch=TRAIN["batch"], device=dev)
     with pinned_impl(ops, "pallas"):
-        prof = _profile_train_step("14", lm, state, batches[0], make_train_step(lm, opt),
-                                   dev)
+        prof, step_plan = _profile_train_step("14", lm, state, batches[0],
+                                              make_train_step(lm, opt), dev, K, ops)
     del lm, state
-    timings += _time_training_kernels("14", "pallas", K, plans["all experts"],
-                                      inputs(torch.bfloat16, plans["all experts"]),
+    timings += _time_training_kernels("14", "pallas", K, plans["all experts"], t_bf16,
                                       n, d, G, E, errs)
-    results["training_unfused"] = unfused | {"profile": prof}
+    dw_plans = {"uniform": plans["all experts"], "the step's layer 0": step_plan}
+    results["training_unfused"] = unfused | {"profile": prof, "dw_on_plans":
+                                             _time_dw_on_plans("14", "pallas", K, dw_plans,
+                                                               t_bf16, n, E)}
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {"fused_w1": ("fused_w1 relu+h (forward)", src + "fused_w1.cu",
@@ -688,6 +727,8 @@ def _training_slice(seed, dev, gen, K, results):
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                        "device_ms": t["device_ms"],
+                        "library_device_ms": t["library_device_ms"],
                         "shape": t["shape"], "dtype": "bfloat16",
                         "path": "training, " + ("pallas" if run is unfused
                                                 else "pallas_fused") + " rung"}
@@ -1168,21 +1209,51 @@ def _step_gates(tag, cfg, rung, three_steps, K, ops, routing, cross_rung=None):
     return out
 
 
-def _profile_train_step(tag, lm, state, batch, step, dev):
-    """One full-width training step under torch.profiler (``_profile``)."""
+def _profile_train_step(tag, lm, state, batch, step, dev, K, ops):
+    """One full-width training step under torch.profiler (``_profile``).
+    Fails unless the profile holds exactly one K3 or K5 device kernel per
+    call of its wrapper in the step. Returns the profile and the plan of the
+    step's first MoE call (layer 0)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
     state, _ = step(state, batch, gen)             # warm
     torch.cuda.synchronize()
+    plans = []
 
     def run():
         nonlocal state
-        state, m = step(state, batch, gen)
+        with recorded_plans(ops, plans):
+            state, m = step(state, batch, gen)
         float(m["loss"])
         torch.cuda.synchronize()
 
-    return _profile(tag, "training step", run, top_n=10)
+    K.reset_launch_counts()
+    prof = _profile(tag, "training step", run, top_n=10)
+    for kernel, label in (("dw_streamed", "K3 dw_streamed"), ("cvmm_dw", "K5 cvmm_dw")):
+        calls, kernels = K.LAUNCHES[kernel], prof["port_kernels"].get(label, (0, 0.0))[0]
+        print(f"[{tag}] {label}: {calls} wrapper calls, {kernels} device kernels in the "
+              "profiled step")
+        if kernels != calls:
+            fail(f"{label} ran {kernels} device kernels for {calls} wrapper calls")
+    prof["wrapper_calls"] = dict(K.LAUNCHES)
+    return prof, plans[0]
+
+
+@contextmanager
+def recorded_plans(ops, plans: list):
+    """Append every plan ``ops.make_moe_plan`` builds meanwhile to ``plans``."""
+    make = ops.make_moe_plan
+
+    def record(*args, **kwargs):
+        plans.append(make(*args, **kwargs))
+        return plans[-1]
+
+    ops.make_moe_plan = record
+    try:
+        yield plans
+    finally:
+        ops.make_moe_plan = make
 
 
 def _profile(tag, label, run, top_n: int = 8):
@@ -1355,13 +1426,50 @@ def _time_training_kernels(tag, rung, K, plan, t, n, d, g, E, errs):
     for case, fn, plain, lib, nbytes, err_key in specs:
         bb, bf = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
         row = {"case": case, "shape": shape, "dtype": "bfloat16",
-               "ms": _time_ms(fn), "plain_ms": _time_ms(plain), "library_ms": _time_ms(lib),
+               "ms": _time_ms(fn), "device_ms": _device_ms(fn), "plain_ms": _time_ms(plain),
+               "library_ms": _time_ms(lib), "library_device_ms": _device_ms(lib),
                "bound_ms": 1e3 * max(bb, bf), "bound_by": "bytes" if bb >= bf else "operations",
                "bound_bytes": nbytes, "bound_flops": flops, "max_abs_err": errs[err_key]}
         out.append(row)
-        print(f"[{tag}] {case} bf16: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"library (torch.bmm) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+        print(f"[{tag}] {case} bf16: kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} device "
+              f"alone), plain {row['plain_ms']:.4f} ms, library (torch.bmm) "
+              f"{row['library_ms']:.4f} ms ({row['library_device_ms']:.4f} device alone), "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)")
+    return out
+
+
+def _time_dw_on_plans(tag, rung, K, plans, t, n, E):
+    """The rung's dW kernels (K3's three variants on "pallas_fused", K5's
+    dW1 and dW2 on "pallas") on each plan of ``plans`` (name -> plan of the
+    same M_pad), bf16, by back-to-back events and device alone, with each
+    plan's rows per expert: the split's balance under the router's skew,
+    and (K3) the gate pass's cost beside the gather's."""
+    out = {}
+    for name, plan in plans.items():
+        rs, te = plan.row_src, plan.tile_expert
+        rows = plan.group_sizes.float()
+        print(f"[{tag}] plan '{name}': rows per expert {plan.group_sizes.tolist()}, the "
+              f"busiest {rows.max() / rows.mean():.2f}x the mean")
+        if rung == "pallas_fused":
+            cases = {"K3 stream_x (dW1)": lambda: K.dw_streamed(t["x"], t["dh"], rs, te, E,
+                                                                stream_x=True),
+                     "K3 stream_g, no gate (dW2)": lambda: K.dw_streamed(
+                         t["u"], t["dy"], rs, te, E, stream_x=False),
+                     "K3 stream_g gated (dW2)": lambda: K.dw_streamed(
+                         t["u"], t["dy"], rs, te, E, stream_x=False,
+                         gate=plan.gate_tiles.detach().reshape(-1))}
+        else:
+            valid = (rs < n)[:, None]
+            xg, dyg = K.gather_rows_plain(t["x"], rs), K.gather_rows_plain(t["dy"], rs)
+            dha, ua = t["dh"] * valid, t["u"] * valid
+            cases = {"K5 dW1": lambda: K.cvmm_dw(xg, te, dha, E),
+                     "K5 dW2": lambda: K.cvmm_dw(ua, te, dyg, E)}
+        out[name] = {"rows_per_expert": plan.group_sizes.tolist()}
+        for case, fn in cases.items():
+            ms, dev_ms = _time_ms(fn), _device_ms(fn)
+            out[name][case] = {"ms": ms, "device_ms": dev_ms}
+            print(f"[{tag}]   {case} on '{name}': {ms:.4f} ms, {dev_ms:.4f} ms device alone")
     return out
 
 

@@ -19,15 +19,41 @@
 // With a gather, a sentinel row_src (outside [0, n_rows)) marks a slack
 // slot: both of its operand rows are written as zeros and neither is read.
 //
-// The TPU grid walks the row tiles sequentially and accumulates in the output
-// block. Hopper blocks run in no order, so here one block owns one
-// (expert, 128-row block of K_pad, 128-column block of N_pad) output block
-// and walks that expert's tiles itself: tile_expert does not decrease, so
-// they are contiguous, found by binary search, and every row read lies inside
-// [0, M_pad). No atomics, no split-K. An expert with no tiles writes zeros.
-// bf16 runs WMMA 16x16x16 with float accumulators over 32-row slices in a
-// two-stage cp.async ring; float32 runs 64x64 output blocks on plain FMAs
-// (no TF32).
+// The split. The TPU grid walks an expert's row tiles in order and sums in
+// the output block. Here the tiles are cut into chunks of at most `chunk`
+// consecutive tiles of one expert, at every multiple of `chunk` and at
+// every expert's first tile, and one block takes one (chunk, output block)
+// item, so the busiest expert costs more blocks, not a longer walk. Items
+// per output block: item q < ceil(n_tiles / chunk) is the chunk starting at
+// tile q * chunk; item ceil(n_tiles / chunk) + e is expert e's first chunk
+// when that does not start on a multiple of `chunk`, or expert e's zeros
+// when it has no tiles. Each block finds its item from tile_expert on the
+// device (tile_expert does not decrease, so an expert's tiles are
+// contiguous); items with nothing to do exit.
+//
+// The combine, deterministic and in the same launch. An expert of one
+// chunk writes its output block directly. Otherwise each chunk writes its
+// float32 partial into `scratch`, then adds one to an integer arrival
+// counter of its (expert, output block); the block that arrives last sums
+// the expert's partials in chunk order, writes the block, and resets the
+// counter to 0. So every call gives the same bits whatever order the
+// blocks run in, with no float atomics. Partial slots: chunk j of expert e
+// (first tile lo) sits in slot 2 * (lo / chunk + j) for j > 0 and slot
+// 2 * (lo / chunk) + (lo % chunk != 0) for j = 0; only one expert with
+// several chunks starts inside any `chunk` tiles, so slots never collide,
+// and 2 * ceil(n_tiles / chunk) of them suffice.
+//
+// bf16: warp-specialised. One producer warpgroup fills a ring of STAGES
+// stages, each 64 rows of A's 128 columns and B's 128 columns of the
+// output block, stored row-major with the 128-byte swizzle: gathered and
+// aligned rows by cp.async, 16 bytes a thread, with the swizzle computed by
+// hand (TMA has no row gather), and with GATE each gathered row through
+// registers, scaled by its gate in float32 and rounded to bf16 on the way
+// into shared memory. Two consumer warpgroups run wgmma m64n128k16 on both
+// operands in shared memory (rows are the reduction, so A^T and B are both
+// MN-major: the transpose bits), 64 output rows each, with full/empty
+// mbarriers between the roles. float32 runs 64x64 output blocks on plain
+// FMAs (no TF32) through the same split and combine.
 #pragma once
 
 #include "row_gemm.cuh"
@@ -36,152 +62,377 @@ namespace dwgemm {
 
 using rowgemm::bf16;
 using rowgemm::cp_async16;
-using rowgemm::cp_async_commit;
-using rowgemm::cp_async_wait;
 using rowgemm::valid_row;
 
 constexpr int TM = rowgemm::TM;
 enum Operands { kAligned = 0, kGatherA = 1, kGatherB = 2 };
 
-// First and one-past-last tile of expert e in the non-decreasing tile_expert.
-__device__ inline void tile_range(const int* te, int n_tiles, int e, int* lo, int* hi) {
-  int a = 0, b = n_tiles;
-  while (a < b) {
-    const int m = (a + b) / 2;
-    if (te[m] < e) a = m + 1; else b = m;
-  }
-  *lo = a;
-  b = n_tiles;
-  while (a < b) {
-    const int m = (a + b) / 2;
-    if (te[m] <= e) a = m + 1; else b = m;
-  }
-  *hi = a;
-}
-
-// Rows of A and B behind padded row `row`; ok is false for a sentinel slot.
+// Rows of A and B behind padded row `row` whose row_src entry is `src`; ok
+// is false for a sentinel slot.
 struct Rows {
   size_t a, b;
   bool ok;
 };
 template <int OPERANDS>
-__device__ __forceinline__ Rows operand_rows(const int* row_src, int n_rows, int row) {
+__device__ __forceinline__ Rows operand_rows(int src, int n_rows, int row) {
   if (OPERANDS == kAligned) return {(size_t)row, (size_t)row, true};
-  const int src = row_src[row];
   const bool ok = valid_row(src, n_rows);
   return OPERANDS == kGatherA ? Rows{(size_t)src, (size_t)row, ok}
                               : Rows{(size_t)row, (size_t)src, ok};
 }
 
+// ------------------------------------------------------------------ split
+__host__ __device__ inline int n_chunks(int n_tiles, int chunk) {
+  return (n_tiles + chunk - 1) / chunk;
+}
+
+// Sum of v over the block's threads, for every thread (all must call).
+__device__ inline int block_sum(int v, int* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int warp = threadIdx.x / 32, n_warps = blockDim.x / 32;
+  __syncthreads();  // red may hold an earlier sum
+  if (threadIdx.x % 32 == 0) red[warp] = v;
+  __syncthreads();
+  v = 0;
+  for (int i = 0; i < n_warps; ++i) v += red[i];
+  return v;
+}
+
+// One block's work: tiles [t0, t1) of expert e, its chunk k of count; e is
+// -1 when the item has nothing to do, and t0 == t1 for an expert with no
+// tiles (a block of zeros).
+struct Item {
+  int e, t0, t1, lo, k, count, slot0;
+};
+
+// Item q, found by all of the block's threads together (red: 32 ints of
+// shared memory). Expert e's tiles are [lo, hi) with lo the count of
+// tile_expert entries below e and hi of those up to e: one parallel pass
+// over tile_expert, not a binary search of dependent loads.
+__device__ inline Item find_item(const int* te, int n_tiles, int n_experts, int chunk, int q,
+                                 int* red) {
+  Item w = {-1, 0, 0, 0, 0, 1, 0};
+  const int nb = n_chunks(n_tiles, chunk);
+  if (q >= nb + n_experts) return w;
+  const int e = q < nb ? te[q * chunk] : q - nb;
+  if (e < 0 || e >= n_experts) return w;
+  int below = 0, upto = 0;
+  for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) {
+    const int v = te[t];
+    below += v < e;
+    upto += v <= e;
+  }
+  const int lo = block_sum(below, red), hi = block_sum(upto, red);
+  if (q < nb) {
+    if (q * chunk < lo || q * chunk >= hi) return w;  // only if tile_expert decreased
+    w.t0 = q * chunk;
+    w.t1 = min(hi, w.t0 + chunk);
+  } else {
+    if (lo == hi) {
+      w.e = e;
+      return w;
+    }
+    if (lo % chunk == 0) return w;  // its first chunk is item lo / chunk
+    w.t0 = lo;
+    w.t1 = min(hi, (lo / chunk + 1) * chunk);
+  }
+  w.e = e;
+  w.lo = lo;
+  w.k = w.t0 / chunk - lo / chunk;
+  w.count = (hi - 1) / chunk - lo / chunk + 1;
+  w.slot0 = 2 * (lo / chunk) + (lo % chunk != 0);
+  return w;
+}
+
+__device__ __forceinline__ int chunk_slot(const Item& w, int j, int chunk) {
+  return j == 0 ? w.slot0 : 2 * (w.lo / chunk + j);
+}
+
+// The end of a block's item: NT threads hold NV float32 sums each (thread
+// tid's v-th at index v * NT + tid of the block's partial), `store` writes
+// such an array into the output block, `sync` is a barrier of the NT
+// threads. A one-chunk expert stores directly; otherwise see "The combine":
+// the last block reads every partial back, its own too, so each sum is the
+// same chain of float32 additions whichever block comes last.
+template <int NV, int NT, class Sync, class Store>
+__device__ __forceinline__ void finish(float (&acc)[NV], const Item& w, int chunk, int ob,
+                                       int n_ob, int tid, float* __restrict__ scratch,
+                                       size_t slot_floats, int* __restrict__ counters,
+                                       int* last_s, Sync sync, Store store) {
+  if (w.count == 1) {
+    store(acc);
+    return;
+  }
+  const size_t part = (size_t)ob * NV * NT + tid;
+  float* mine = scratch + (size_t)chunk_slot(w, w.k, chunk) * slot_floats + part;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) __stcg(mine + v * NT, acc[v]);
+  __threadfence();
+  sync();
+  if (tid == 0) {
+    int* c = counters + (size_t)w.slot0 * n_ob + ob;
+    const bool last = atomicAdd(c, 1) == w.count - 1;
+    if (last) *c = 0;  // zero again for the next call
+    *last_s = last;
+  }
+  sync();
+  if (!*last_s) return;
+  __threadfence();
+  for (int j = 0; j < w.count; ++j) {
+    const float* p = scratch + (size_t)chunk_slot(w, j, chunk) * slot_floats + part;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float x = __ldcg(p + v * NT);
+      acc[v] = j ? acc[v] + x : x;
+    }
+  }
+  store(acc);
+}
+
+// ------------------------------------------------------------ PTX helpers
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// The mbarrier gets one arrival once every cp.async this thread has issued
+// so far has landed (its pending count is not raised: counted at init).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// Shared-memory writes made through the generic proxy (st.shared,
+// cp.async) that happen before this fence are seen by later async-proxy
+// reads (wgmma) of the executing thread.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins the accumulators after the last wait, so no read of them moves
+// above it.
+template <int NV>
+__device__ __forceinline__ void fence_operands(float (&d)[NV]) {
+#pragma unroll
+  for (int v = 0; v < NV; ++v) asm volatile("" : "+f"(d[v])::"memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled MN-major operand:
+// 8-row groups (the reduction dimension) 1,024 bytes apart, 64-column
+// (128-byte) atoms of the M or N dimension `lbo` bytes apart.
+__device__ __forceinline__ uint64_t mn_sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 | static_cast<uint64_t>(1024 >> 4) << 32 |
+         1ull << 62;
+}
+
+// d (64 x 128, float32, the wgmma accumulator layout) += A B, A (64 x 16)
+// and B (16 x 128) bf16 in shared memory, both MN-major.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // ---------------------------------------------------------------- bf16 path
 namespace tc {
-constexpr int BI = 128, BJ = 128, BR = 32;  // output 128 x 128, 32 rows a slice
-constexpr int WARPS_I = 4, WARPS_J = 2;     // 8 warps, each 32 x 64
-constexpr int THREADS = 32 * WARPS_I * WARPS_J;
-constexpr int FI = BI / WARPS_I / 16, FJ = BJ / WARPS_J / 16;
-constexpr int LD = 128 + 8;                 // padded rows, 32-B aligned fragments
-constexpr int STAGE = BR * LD;
-static_assert(TM % BR == 0, "slices never straddle two plan tiles");
+constexpr int BI = 128, BJ = 128;  // output block
+constexpr int BR = 64;             // rows a stage
+constexpr int STAGES = 4;
+constexpr int CONSUMERS = 256;     // two warpgroups, 64 output rows each
+constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+constexpr int NV = BI * BJ / CONSUMERS;   // accumulators a consumer thread
+constexpr int HALF = BR * 128;     // bytes of [BR rows][64 columns] bf16
+constexpr int OPERAND = 2 * HALF;  // an operand's 128 columns
+constexpr int STAGE = 2 * OPERAND;  // A, then B
+constexpr int SMEM = STAGES * STAGE + 1024;  // + aligning the ring to 1 KB
+static_assert(TM % BR == 0, "stages never straddle two plan tiles");
+static_assert(NV == 64, "one m64n128 accumulator a consumer thread");
 }  // namespace tc
 
 template <int OPERANDS, bool GATE>
-__global__ void __launch_bounds__(tc::THREADS)
+__global__ void __launch_bounds__(tc::THREADS, 1)
 dw_bf16(const bf16* __restrict__ a, const bf16* __restrict__ b,
         const int* __restrict__ row_src, int n_rows, const int* __restrict__ tile_expert,
-        int n_tiles, const float* __restrict__ gate, float* __restrict__ out, int k_pad,
-        int n_pad) {
-  using namespace nvcuda;
+        int n_tiles, const float* __restrict__ gate, float* __restrict__ out,
+        float* __restrict__ scratch, int* __restrict__ counters, int k_pad, int n_pad,
+        int n_experts, int chunk) {
   using namespace tc;
-  __shared__ __align__(128) bf16 a_s[2 * STAGE];
-  __shared__ __align__(128) bf16 b_s[2 * STAGE];
-  __shared__ int range[2];
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  __shared__ int red[32], last_s;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wi = warp / WARPS_J, wj = warp % WARPS_J;
-  const int e = blockIdx.z;
-  const int i0 = blockIdx.y * BI, j0 = blockIdx.x * BJ;
-  if (tid == 0) tile_range(tile_expert, n_tiles, e, &range[0], &range[1]);
+  const int n_bj = n_pad / BJ, n_ob = (k_pad / BI) * n_bj;
+  const int ob = blockIdx.x % n_ob;
+  const int i0 = ob / n_bj * BI, j0 = ob % n_bj * BJ;
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const Item w = find_item(tile_expert, n_tiles, n_experts, chunk, blockIdx.x / n_ob, red);
+  if (w.e < 0) return;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 2 * 128);       // each producer thread's copies and stores
+      mbar_init(&empty[s], CONSUMERS / 32);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  const int r_begin = range[0] * TM;
-  const int n_slices = (range[1] - range[0]) * (TM / BR);
+  const int n_st = (w.t1 - w.t0) * (TM / BR);
+  const int r0 = w.t0 * TM;
 
-  // One 32-row slice of both operands; sentinel rows are zeros in both.
-  auto load = [&](int sl, int st) {
-    bf16* as = a_s + st * STAGE;
-    bf16* bs = b_s + st * STAGE;
+  if (tid < CONSUMERS) {
+    // ------------------------------------------------------------ consumers
+    const int wg = tid / 128, lane = tid % 32;
+    float acc[NV];
 #pragma unroll
-    for (int i = 0; i < (BR * 128 / 8) / THREADS; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / 16, col = (c % 16) * 8;
-      const Rows rw = operand_rows<OPERANDS>(row_src, n_rows, r_begin + sl * BR + r);
-      if (rw.ok) {
-        cp_async16(as + r * LD + col, a + rw.a * k_pad + i0 + col);
-        cp_async16(bs + r * LD + col, b + rw.b * n_pad + j0 + col);
-      } else {
-        *reinterpret_cast<uint4*>(as + r * LD + col) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(bs + r * LD + col) = make_uint4(0, 0, 0, 0);
-      }
+    for (int v = 0; v < NV; ++v) acc[v] = 0.0f;
+    for (int it = 0; it < n_st; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      fence_proxy_async();
+      const uint32_t sa = ring + s * STAGE + wg * HALF, sb = ring + s * STAGE + OPERAND;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BR / 16; ++kk)
+        wgmma_m64n128k16(acc, mn_sw128_desc(sa + kk * 16 * 128, HALF),
+                         mn_sw128_desc(sb + kk * 16 * 128, HALF));
+      wgmma_commit();
+      wgmma_wait<1>();  // the stage before this one is read
+      if (it > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
     }
-  };
+    wgmma_wait<0>();
+    fence_operands(acc);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FI][FJ];
+    // Accumulator v of thread tid: row 16 * warp + lane / 4 + 8 * (v / 2 % 2),
+    // column 8 * (v / 4) + 2 * (lane % 4) + v % 2 of its warpgroup's 64 x 128.
+    float* ob_out = out + (size_t)w.e * k_pad * n_pad + (size_t)(i0 + wg * 64) * n_pad + j0;
+    const int row = (tid % 128) / 32 * 16 + lane / 4, col = 2 * (lane % 4);
+    auto store = [&](const float(&d)[NV]) {
 #pragma unroll
-  for (int i = 0; i < FI; ++i)
+      for (int v = 0; v < NV; v += 2) {
+        const int r = row + 8 * (v / 2 % 2), c = col + 8 * (v / 4);
+        *reinterpret_cast<float2*>(ob_out + (size_t)r * n_pad + c) = make_float2(d[v], d[v + 1]);
+      }
+    };
+    finish<NV, CONSUMERS>(acc, w, chunk, ob, n_ob, tid, scratch, (size_t)k_pad * n_pad,
+                          counters, &last_s, [] { named_sync(1, CONSUMERS); }, store);
+  } else {
+    // ------------------------------------------------------------- producer
+    // Thread p loads the 16-byte column chunk cc of rows rr + 8 i (i < 8) of
+    // each stage; row r's chunk c sits at byte 128 r + 16 (c ^ r % 8) of its
+    // 64-column half (the 128-byte swizzle), and r % 8 = rr for all its rows.
+    const int p = tid - CONSUMERS;
+    const int rr = p / 16, cc = p % 16;
+    const int so = cc / 8 * HALF + rr * 128 + (((cc % 8) ^ rr) << 4);
+    unsigned char* const ring_p = smem_raw + (ring - smem_u32(smem_raw));
+    const bf16* ga = a + i0 + cc * 8;
+    const bf16* gb = b + j0 + cc * 8;
+    constexpr int ROWS = BR / 8;  // rows a thread loads of each operand a stage
+    struct Fetch {
+      int src[ROWS];
+      uint4 v[ROWS];    // GATE: the gathered B rows
+      float g[ROWS];    // and their gates
+    };
+    auto fetch = [&](int it, Fetch& f) {
 #pragma unroll
-    for (int j = 0; j < FJ; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  if (n_slices > 0) {
-    load(0, 0);
-    cp_async_commit();
+      for (int i = 0; i < ROWS; ++i) {
+        const int row = r0 + it * BR + rr + 8 * i;
+        f.src[i] = OPERANDS == kAligned ? row : row_src[row];
+        if (GATE && valid_row(f.src[i], n_rows)) {
+          f.v[i] = __ldg(reinterpret_cast<const uint4*>(gb + (size_t)f.src[i] * n_pad));
+          f.g[i] = gate[row];
+        }
+      }
+    };
+    Fetch next;
+    if (n_st > 0) fetch(0, next);
+    for (int it = 0; it < n_st; ++it) {
+      const Fetch cur = next;
+      if (it + 1 < n_st) fetch(it + 1, next);  // in flight while this stage is stored
+      const int s = it % STAGES;
+      if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+      unsigned char* const sa = ring_p + s * STAGE + so;
+      unsigned char* const sb = sa + OPERAND;
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        const int row = r0 + it * BR + rr + 8 * i;
+        const Rows rw = operand_rows<OPERANDS>(cur.src[i], n_rows, row);
+        if (rw.ok) {
+          cp_async16(sa + i * 1024, ga + rw.a * k_pad);
+          if (GATE) {  // dy row * gate in float32, rounded back to bf16
+            uint4 v = cur.v[i];
+            __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float2 f = __bfloat1622float2(h[q]);
+              h[q] = __floats2bfloat162_rn(f.x * cur.g[i], f.y * cur.g[i]);
+            }
+            *reinterpret_cast<uint4*>(sb + i * 1024) = v;
+          } else {
+            cp_async16(sb + i * 1024, gb + rw.b * n_pad);
+          }
+        } else {
+          *reinterpret_cast<uint4*>(sa + i * 1024) = make_uint4(0, 0, 0, 0);
+          *reinterpret_cast<uint4*>(sb + i * 1024) = make_uint4(0, 0, 0, 0);
+        }
+      }
+      cp_async_arrive(&full[s]);  // when the copies have landed
+      mbar_arrive(&full[s]);      // the stores (release)
+    }
   }
-  for (int sl = 0; sl < n_slices; ++sl) {
-    if (sl + 1 < n_slices) {
-      load(sl + 1, (sl + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* as = a_s + (sl & 1) * STAGE;
-    bf16* bs = b_s + (sl & 1) * STAGE;
-    if (GATE) {  // dy row * gate in float32, rounded back to bf16
-      for (int p = tid; p < BR * 64; p += THREADS) {
-        const int r = p / 64, c = (p % 64) * 2;
-        const float g = gate[r_begin + sl * BR + r];
-        __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(bs + r * LD + c);
-        const float2 f = __bfloat1622float2(*v);
-        *v = __floats2bfloat162_rn(f.x * g, f.y * g);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int kk = 0; kk < BR; kk += 16) {
-      // A^T: a col_major fragment of the row-major (rows x K) slice.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[FI];
-#pragma unroll
-      for (int i = 0; i < FI; ++i)
-        wmma::load_matrix_sync(fa[i], as + kk * LD + wi * FI * 16 + i * 16, LD);
-#pragma unroll
-      for (int j = 0; j < FJ; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, bs + kk * LD + wj * FJ * 16 + j * 16, LD);
-#pragma unroll
-        for (int i = 0; i < FI; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-      }
-    }
-    __syncthreads();  // the next iteration's loads overwrite this stage
-  }
-
-  float* ob = out + (size_t)e * k_pad * n_pad;
-#pragma unroll
-  for (int i = 0; i < FI; ++i)
-#pragma unroll
-    for (int j = 0; j < FJ; ++j)
-      wmma::store_matrix_sync(
-          ob + (size_t)(i0 + wi * FI * 16 + i * 16) * n_pad + j0 + wj * FJ * 16 + j * 16,
-          acc[i][j], n_pad, wmma::mem_row_major);
 }
 
 // ------------------------------------------------------------- float32 path
@@ -195,26 +446,27 @@ template <int OPERANDS, bool GATE>
 __global__ void __launch_bounds__(fp::THREADS)
 dw_f32(const float* __restrict__ a, const float* __restrict__ b,
        const int* __restrict__ row_src, int n_rows, const int* __restrict__ tile_expert,
-       int n_tiles, const float* __restrict__ gate, float* __restrict__ out, int k_pad,
-       int n_pad) {
+       int n_tiles, const float* __restrict__ gate, float* __restrict__ out,
+       float* __restrict__ scratch, int* __restrict__ counters, int k_pad, int n_pad,
+       int n_experts, int chunk) {
   using namespace fp;
   __shared__ __align__(16) float a_s[BR][BI + 4];
   __shared__ __align__(16) float b_s[BR][BJ + 4];
-  __shared__ int range[2];
+  __shared__ int red[32], last_s;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int e = blockIdx.z;
-  const int i0 = blockIdx.y * BI, j0 = blockIdx.x * BJ;
-  if (tid == 0) tile_range(tile_expert, n_tiles, e, &range[0], &range[1]);
-  __syncthreads();
-  const int r_begin = range[0] * TM, r_end = range[1] * TM;
+  const int n_bj = n_pad / BJ, n_ob = (k_pad / BI) * n_bj;
+  const int ob = blockIdx.x % n_ob;
+  const int i0 = ob / n_bj * BI, j0 = ob % n_bj * BJ;
+  const Item w = find_item(tile_expert, n_tiles, n_experts, chunk, blockIdx.x / n_ob, red);
+  if (w.e < 0) return;
 
-  float acc[4][4] = {};
+  float acc[16] = {};  // rows ty * 4 + v / 4, columns tx * 4 + v % 4
   const int lr = tid / 16, lc = (tid % 16) * 4;  // 16 rows x 64 cols, one float4 each
-  for (int r0 = r_begin; r0 < r_end; r0 += BR) {
+  for (int r0 = w.t0 * TM; r0 < w.t1 * TM; r0 += BR) {
     const int row = r0 + lr;
     float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av;
-    const Rows rw = operand_rows<OPERANDS>(row_src, n_rows, row);
+    const Rows rw = operand_rows<OPERANDS>(OPERANDS == kAligned ? row : row_src[row], n_rows, row);
     if (rw.ok) {
       av = *reinterpret_cast<const float4*>(a + rw.a * k_pad + i0 + lc);
       bv = *reinterpret_cast<const float4*>(b + rw.b * n_pad + j0 + lc);
@@ -236,34 +488,61 @@ dw_f32(const float* __restrict__ a, const float* __restrict__ b,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i * 4 + j] = fmaf(x[i], y[j], acc[i * 4 + j]);
     }
     __syncthreads();
   }
-  float* ob = out + (size_t)e * k_pad * n_pad;
+  float* ob_out = out + (size_t)w.e * k_pad * n_pad;
+  auto store = [&](const float(&d)[16]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(ob + (size_t)(i0 + ty * 4 + i) * n_pad + j0 + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(ob_out + (size_t)(i0 + ty * 4 + i) * n_pad + j0 + tx * 4) =
+          make_float4(d[i * 4], d[i * 4 + 1], d[i * 4 + 2], d[i * 4 + 3]);
+  };
+  finish<16, THREADS>(acc, w, chunk, ob, n_ob, tid, scratch, (size_t)k_pad * n_pad, counters,
+                      &last_s, [] { __syncthreads(); }, store);
 }
 
+// Work items of one output block and partial slots of the split; the
+// wrapper sizes the grid and the scratch from these.
+inline int n_items(int n_tiles, int n_experts, int chunk) {
+  return n_chunks(n_tiles, chunk) + n_experts;
+}
+inline int n_slots(int n_tiles, int chunk) { return 2 * n_chunks(n_tiles, chunk); }
+
 // dtype: 0 float32, 1 bfloat16 (of a and b). The caller has checked the
-// shapes: m_pad a multiple of TM, k_pad and n_pad multiples of 128.
+// shapes (m_pad a multiple of TM, k_pad and n_pad multiples of 128) and
+// the workspace: scratch n_slots * k_pad * n_pad floats, counters
+// n_slots * (k_pad / 64) * (n_pad / 64) ints, zero.
 template <int OPERANDS, bool GATE>
-void launch(const void* a, const void* b, const int* rs, int n_rows, const int* te,
-            int n_tiles, const float* gate, float* out, int k_pad, int n_pad, int n_experts,
-            int dtype, cudaStream_t s) {
+cudaError_t launch(const void* a, const void* b, const int* rs, int n_rows, const int* te,
+                   int n_tiles, const float* gate, float* out, float* scratch, int* counters,
+                   int k_pad, int n_pad, int n_experts, int chunk, int dtype, cudaStream_t s) {
+  const long long items = n_items(n_tiles, n_experts, chunk);
   if (dtype == 1) {
-    dim3 grid(n_pad / tc::BJ, k_pad / tc::BI, n_experts);
-    dw_bf16<OPERANDS, GATE><<<grid, tc::THREADS, 0, s>>>(
+    const long long blocks = items * (k_pad / tc::BI) * (n_pad / tc::BJ);
+    if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+    auto kern = dw_bf16<OPERANDS, GATE>;
+    static bool smem_set[64] = {};  // per device, once: the call costs host time
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= 64 || !smem_set[dev]) {
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM);
+      if (err != cudaSuccess) return err;
+      if (dev < 64) smem_set[dev] = true;
+    }
+    kern<<<static_cast<unsigned>(blocks), tc::THREADS, tc::SMEM, s>>>(
         static_cast<const bf16*>(a), static_cast<const bf16*>(b), rs, n_rows, te, n_tiles,
-        gate, out, k_pad, n_pad);
+        gate, out, scratch, counters, k_pad, n_pad, n_experts, chunk);
   } else {
-    dim3 grid(n_pad / fp::BJ, k_pad / fp::BI, n_experts);
-    dw_f32<OPERANDS, GATE><<<grid, fp::THREADS, 0, s>>>(
+    const long long blocks = items * (k_pad / fp::BI) * (n_pad / fp::BJ);
+    if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+    dw_f32<OPERANDS, GATE><<<static_cast<unsigned>(blocks), fp::THREADS, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(b), rs, n_rows, te, n_tiles,
-        gate, out, k_pad, n_pad);
+        gate, out, scratch, counters, k_pad, n_pad, n_experts, chunk);
   }
+  return cudaGetLastError();
 }
 
 }  // namespace dwgemm

@@ -33,7 +33,7 @@ K7's (``kernels/flash_attention.py``) included; nothing else adds to it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -316,6 +316,50 @@ def fused_w2(u_pad: torch.Tensor, tile_expert: torch.Tensor, w2: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K3 and K5's split (csrc/dw_gemm.cuh): an expert's tiles go in chunks of at
+# most DW_CHUNK tiles, one block per (chunk, output block); experts of
+# several chunks sum float32 partials from a scratch array in chunk order.
+# ---------------------------------------------------------------------------
+
+# 5 gives wt103-47m-moe's training step (273 tiles, 16 experts, 4 output
+# blocks) about 270 blocks with work: two waves on the H100's 132 SMs.
+# Smaller chunks balance better but pay each block's start and combine more
+# often (scripts/dw_chunk_sweep.py times the choices).
+DW_CHUNK = 5
+
+
+def dw_split(n_tiles: int, n_experts: int, chunk: int) -> Tuple[int, int]:
+    """(work items per output block, float32 partial slots) of the split, as
+    csrc/dw_gemm.cuh's ``n_items`` and ``n_slots`` size the grid and the
+    scratch. Item q < ceil(n_tiles / chunk) is the chunk that starts at tile
+    q * chunk; item ceil(n_tiles / chunk) + e is expert e's first chunk when
+    that starts off a multiple of ``chunk``, or its zeros when it has no
+    tiles. Slot 2 * (t // chunk) + (t % chunk != 0) holds the partial of the
+    chunk that starts at tile t."""
+    n_chunks = -(-n_tiles // chunk)
+    return n_chunks + n_experts, 2 * n_chunks
+
+
+# Arrival counters of the combine, per (device, stream): zero between calls,
+# since each call's last block of an output block resets its counter.
+_DW_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _dw_workspace(dev: torch.device, stream: int, m_pad: int, k_pad: int, n_pad: int):
+    """Scratch (torch.empty) and zeroed counters for one K3 or K5 call on
+    ``stream``, and the slot count; the counters cover both dtypes' output
+    blocks (64 x 64 in float32)."""
+    _, slots = dw_split(m_pad // TM, 0, DW_CHUNK)
+    scratch = torch.empty(slots * k_pad * n_pad, dtype=torch.float32, device=dev)
+    key = (dev.index, stream)
+    need = slots * (k_pad // 64) * (n_pad // 64)
+    counters = _DW_COUNTERS.get(key)
+    if counters is None or counters.numel() < need:
+        counters = _DW_COUNTERS[key] = torch.zeros(need, dtype=torch.int32, device=dev)
+    return scratch, counters, slots
+
+
+# ---------------------------------------------------------------------------
 # K3: expert weight gradient with one operand gathered through row_src
 # ---------------------------------------------------------------------------
 
@@ -375,12 +419,14 @@ def dw_streamed(x: torch.Tensor, g: torch.Tensor, row_src: torch.Tensor,
         raise ValueError("dw_streamed: row_src and tile_expert must be int32")
     out = torch.empty((n_experts, k_pad, n_pad), dtype=torch.float32,
                       device=x.device)
-    fn = _fn("dw_streamed", "repro_dw_streamed", [_C] * 6 + [_I] * 7 + [_C])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    scratch, counters, slots = _dw_workspace(x.device, stream, m_pad, k_pad, n_pad)
+    fn = _fn("dw_streamed", "repro_dw_streamed", [_C] * 8 + [_I] * 9 + [_C])
     rc = fn(x.data_ptr(), g.data_ptr(), row_src.data_ptr(),
             tile_expert.data_ptr(), None if gate is None else gate.data_ptr(),
-            out.data_ptr(), (x if stream_x else g).shape[0], m_pad, k_pad,
-            n_pad, n_experts, int(stream_x), _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+            (x if stream_x else g).shape[0], m_pad, k_pad, n_pad, n_experts,
+            int(stream_x), _DTYPE_CODE[x.dtype], DW_CHUNK, slots, stream)
     _launch_status("dw_streamed", rc)
     LAUNCHES["dw_streamed"] += 1
     return out
@@ -423,11 +469,13 @@ def cvmm_dw(x_pad: torch.Tensor, tile_expert: torch.Tensor,
         raise ValueError("cvmm_dw: tile_expert must be int32")
     out = torch.empty((n_experts, k_pad, n_pad), dtype=torch.float32,
                       device=x_pad.device)
-    fn = _fn("cvmm_dw", "repro_cvmm_dw", [_C] * 4 + [_I] * 5 + [_C])
+    stream = torch.cuda.current_stream(x_pad.device).cuda_stream
+    scratch, counters, slots = _dw_workspace(x_pad.device, stream, m_pad, k_pad, n_pad)
+    fn = _fn("cvmm_dw", "repro_cvmm_dw", [_C] * 6 + [_I] * 7 + [_C])
     rc = fn(x_pad.data_ptr(), tile_expert.data_ptr(), g_pad.data_ptr(),
-            out.data_ptr(), m_pad, k_pad, n_pad, n_experts,
-            _DTYPE_CODE[x_pad.dtype],
-            torch.cuda.current_stream(x_pad.device).cuda_stream)
+            out.data_ptr(), scratch.data_ptr(), counters.data_ptr(), m_pad,
+            k_pad, n_pad, n_experts, _DTYPE_CODE[x_pad.dtype], DW_CHUNK, slots,
+            stream)
     _launch_status("cvmm_dw", rc)
     LAUNCHES["cvmm_dw"] += 1
     return out

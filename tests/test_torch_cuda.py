@@ -136,6 +136,77 @@ def test_dw_streamed_kernel_matches_plain(cuda, dtype, variant):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
+# K3 and K5 on plans with set rows per expert: (rows per expert, K_pad, N_pad).
+DW_LAYOUTS = {
+    # one expert with 3x the mean rows (12 tiles: several chunks), one empty
+    "skewed": ([1500, 375, 375, 375, 375, 0], 512, 128),
+    # experts of exactly one tile (128 rows, 5 rows) and of 5, 11 and 2
+    # tiles, counts that are not multiples of the chunk
+    "one_tile_and_ragged": ([128, 5, 640, 1300, 130], 128, 512),
+    # the first, a middle and the last expert without rows
+    "empty_experts": ([0, 200, 333, 0, 700, 50, 0], 128, 128),
+    # granite-moe's 40 experts at K_pad = N_pad = 512, expert 0 empty
+    "granite_e40": ([37 * e % 290 for e in range(40)], 512, 512),
+}
+DW_VARIANTS = ["stream_x", "stream_g", "stream_g_gate", "cvmm_dw"]
+
+
+def _dw_case(dev, layout, variant, dtype, seed=11):
+    """(kernel, plain, args, kwargs, rows per expert) of one K3 variant or K5
+    on a top-1 plan with DW_LAYOUTS[layout]'s rows per expert, tokens in
+    random order. The aligned operand carries (largest expert's rows)^-0.5,
+    so the float32 sums stay O(1) and 1e-4 bounds summation-order
+    differences."""
+    rows, k_pad, n_pad = DW_LAYOUTS[layout]
+    gen = torch.Generator().manual_seed(seed)
+    e_of = torch.repeat_interleave(torch.arange(len(rows)), torch.tensor(rows))
+    idx = e_of[torch.randperm(len(e_of), generator=gen)][:, None].to(dev)
+    plan = ops.make_moe_plan(idx, len(rows), torch.rand(idx.shape, generator=gen).to(dev))
+    n, m_pad, e = idx.shape[0], plan.m_pad, len(rows)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    valid = (plan.row_src < n)[:, None]
+    scale = max(rows) ** -0.5
+    if variant == "cvmm_dw":
+        x = torch.randn((m_pad, k_pad), generator=g, device=dev) * valid
+        gp = torch.randn((m_pad, n_pad), generator=g, device=dev) * valid * scale
+        return (K.cvmm_dw, K.cvmm_dw_plain,
+                (x.to(dtype), plan.tile_expert, gp.to(dtype), e), {}, rows)
+    stream_x = variant == "stream_x"
+    unsorted = torch.randn((n, k_pad if stream_x else n_pad), generator=g, device=dev)
+    aligned = torch.randn((m_pad, n_pad if stream_x else k_pad), generator=g,
+                          device=dev) * scale
+    x, gr = (unsorted, aligned) if stream_x else (aligned, unsorted)
+    gate = plan.gate_tiles.reshape(-1) if variant == "stream_g_gate" else None
+    return (K.dw_streamed, K.dw_streamed_plain,
+            (x.to(dtype), gr.to(dtype), plan.row_src, plan.tile_expert, e),
+            dict(stream_x=stream_x, gate=gate), rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", DW_VARIANTS)
+@pytest.mark.parametrize("layout", DW_LAYOUTS)
+def test_dw_split_matches_plain(cuda, layout, variant, dtype):
+    kernel, plain, args, kw, rows = _dw_case(cuda, layout, variant, dtype)
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    for e, r in enumerate(rows):
+        if r == 0:
+            assert bool((got[e] == 0).all())          # exactly zero
+    # float32 sums of identical operands in either input type
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", DW_VARIANTS)
+def test_dw_kernels_give_the_same_bits_every_call(cuda, variant, dtype):
+    kernel, _, args, kw, rows = _dw_case(cuda, "skewed", variant, dtype)
+    assert -(-max(rows) // 128) > 2 * K.DW_CHUNK          # several chunks
+    first, again = kernel(*args, **kw), kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+
+
 @pytest.mark.parametrize("glu", [False, True])
 def test_moe_mlp_fused_gradients_match_plain(cuda, glu):
     """float32 on the card (kernels) against float32 on the CPU (plain)."""
