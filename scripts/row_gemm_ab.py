@@ -1,0 +1,207 @@
+#!/usr/bin/env python3
+"""Time K1 (``fused_w1``) and K4 (``cvmm``) in bf16 on one CUDA card at the
+main paths' shapes, device alone, beside ``torch.bmm`` and the bound.
+
+    python3 scripts/row_gemm_ab.py [--src DIR] [--tag NAME] [--sweep] [--seed 0]
+
+``--src`` names the ``src`` directory whose ``repro_torch`` is timed (default
+this checkout's), so that one call can time two trees in turns: unpack the
+other tree with ``git archive`` into a directory ``.gitignore`` lists and run
+this script with ``--src`` pointing there, then without, and so on. Each tree
+builds its kernels into its own ``build/repro_torch/``. ``--sweep`` (this
+checkout's kernels only) also times every case with its items forced to 256,
+128 and 64 columns where the call allows that width (``kernels.cvmm.
+row_gemm_schedule`` replaced for the run).
+
+Shapes: serve-long's prefill chunk (M_pad 81,920 = 40 experts x 2,048 rows,
+1,536 -> 512 and 512 -> 1,536, x_pad holding the chunk's 2,048 routed rows
+of a random top-8 routing of 256 tokens), serving decode (M_pad 5,120), and
+wt103-47m-moe's training step (8,224 tokens x top-4 of 16 experts, d_model
+412, expert size 128): K1's forward (relu, h saved) and t0, K4's dX and the
+unfused forward's two calls. Each kernel is first held against its plain
+version (3e-2 allclose and 1e-2 normwise); beside its device time the host's
+time to issue one call (wrapper and launch) is timed too. Prints the card's
+name and power limit, one line per case, and one JSON line of every number
+last.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+HBM_BYTES_PER_S, PEAK_BF16 = 3.35e12, 989e12   # H100 SXM data sheet, 700 W
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", type=Path, default=ROOT / "src")
+    ap.add_argument("--tag", default="this tree")
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    from chip_smoke import _device_ms      # puts this checkout's src on the path
+    sys.path.insert(0, str(args.src.resolve()))
+    import torch
+    from repro_torch.kernels import cvmm as K, ops
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card)
+    print(f"[{args.tag}] repro_torch from {Path(K.__file__).parents[1]}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    cases = []     # (name, kernel fn, plain fn, library fn, bytes, flops)
+
+    # serving: the decode plan's layout, 40 experts of granite-moe-3b-a800m
+    E, D, G = 40, 1536, 512
+    for label, tokens in (("prefill chunk", 256), ("decode", 1)):
+        plan = ops.make_decode_plan(tokens, 8, E, device=dev)
+        m_pad, cap = plan.m_pad, plan.cap
+        idx = torch.argsort(torch.rand((tokens, E), generator=gen, device=dev), 1)[:, :8]
+        slot = ops.decode_slots(plan, idx)
+        te = plan.tile_expert
+        for k, n in ((D, G), (G, D)):
+            x = torch.zeros((m_pad, k), dtype=bf, device=dev)
+            x[slot] = rnd(slot.numel(), k)
+            w = rnd(E, k, n, scale=k ** -0.5)
+            cases.append((f"K4 {label} M_pad {m_pad} {k}->{n}",
+                          lambda x=x, te=te, w=w: K.cvmm(x, te, w),
+                          lambda x=x, te=te, w=w: K.cvmm_plain(x, te, w),
+                          lambda x=x, w=w, k=k, cap=cap, e=E: torch.bmm(x.view(e, cap, k), w),
+                          (x.numel() + w.numel() + m_pad * n) * 2 + te.numel() * 4,
+                          2 * m_pad * k * n))
+
+    # training: wt103-47m-moe, batch 32 x 257 tokens, top-4 of 16 experts
+    n, k, E, d, g = 32 * 257, 4, 16, 412, 128
+    idx = torch.argsort(torch.rand((n, E), generator=gen, device=dev), 1)[:, :k]
+    plan = ops.make_moe_plan(idx, E, torch.rand((n, k), generator=gen, device=dev))
+    rs, te, m_pad = plan.row_src, plan.tile_expert, plan.m_pad
+    rows = n * k
+    valid = (rs < n)[:, None]
+    x, dy = (ops._pad_lane(torch.randn((n, d), generator=gen, device=dev), 1).to(bf)
+             for _ in range(2))
+    w1 = ops._pad_w(torch.randn((E, d, g), generator=gen, device=dev) * d ** -0.5).to(bf)
+    w2 = ops._pad_w(torch.randn((E, g, d), generator=gen, device=dev) * g ** -0.5).to(bf)
+    w2t, w1t = w2.transpose(1, 2).contiguous(), w1.transpose(1, 2).contiguous()
+    u = (torch.randn((m_pad, 128), generator=gen, device=dev) * valid).to(bf)
+    dh = (torch.randn((m_pad, 128), generator=gen, device=dev) * valid).to(bf)
+    xg = K.gather_rows_plain(x, rs)
+    cap = -(-int(plan.group_sizes.max()) // 128) * 128
+
+    def expert_major(a):
+        """(M_pad, W) plan rows -> (E, cap, W), routed rows only."""
+        out = a.new_zeros((E, cap, a.shape[1]))
+        e_of_row = te.long().repeat_interleave(128)
+        first = torch.searchsorted(te.long(), torch.arange(E, device=dev))
+        pos = torch.arange(m_pad, device=dev) - first[e_of_row] * 128
+        keep = (rs < n) & (pos < cap)
+        out[e_of_row[keep], pos[keep]] = a[keep]
+        return out
+
+    xe, dye = expert_major(xg), expert_major(K.gather_rows_plain(dy, rs))
+    ue, dhe = expert_major(u), expert_major(dh)
+    tok, routed_g, routed_d = n * d * 2, rows * g * 2, rows * d * 2
+    w_b, idx_b, te_b = E * d * g * 2, rows * 4 + te.numel() * 4, te.numel() * 4
+    flops = 2 * rows * d * g
+    cases += [
+        ("K1 forward relu+h (training)",
+         lambda: K.fused_w1(x, rs, te, w1, act="relu", save_preact=True),
+         lambda: K.fused_w1_plain(x, rs, te, w1, act="relu", save_preact=True),
+         lambda: torch.bmm(xe, w1), tok + w_b + 2 * routed_g + idx_b, flops),
+        ("K1 t0 = dy w2^T (training)",
+         lambda: K.fused_w1(dy, rs, te, w2t, act="identity"),
+         lambda: K.fused_w1_plain(dy, rs, te, w2t, act="identity"),
+         lambda: torch.bmm(dye, w2t), tok + w_b + routed_g + idx_b, flops),
+        ("K4 dX = dh w1^T (training)", lambda: K.cvmm(dh, te, w1t),
+         lambda: K.cvmm_plain(dh, te, w1t), lambda: torch.bmm(dhe, w1t),
+         routed_g + w_b + routed_d + te_b, flops),
+        ("K4 h = x_pad w1 (unfused forward)", lambda: K.cvmm(xg, te, w1),
+         lambda: K.cvmm_plain(xg, te, w1), lambda: torch.bmm(xe, w1),
+         routed_d + w_b + routed_g + te_b, flops),
+        ("K4 y = u_pad w2 (unfused forward)", lambda: K.cvmm(u, te, w2),
+         lambda: K.cvmm_plain(u, te, w2), lambda: torch.bmm(ue, w2),
+         routed_g + w_b + routed_d + te_b, flops),
+    ]
+
+    def host_ms(fn, iters=200):
+        """The host's time to issue one call (wrapper and launch), the
+        device not waited for: the launches queue while it catches up."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        elapsed = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e3 * elapsed / iters
+
+    def check(name, fn, plain):
+        got, want = fn(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            a, b = a.float(), b.float()
+            rel = (torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp_min(1e-30)).item()
+            if not (torch.allclose(a, b, atol=3e-2, rtol=3e-2) and rel <= 1e-2):
+                sys.exit(f"FAIL: {name} disagrees with its plain version (normwise {rel:.3g})")
+
+    # --sweep: each case with its items forced to one width where the call
+    # allows it (the schedule's grid rule kept), beside the default choice
+    default_schedule = getattr(K, "row_gemm_schedule", None)
+
+    def forced(bn):
+        def schedule(m_pad, n_pad, n_sms, glu=False, save=False):
+            widest = 64 if glu else 128 if save else 256
+            if bn > widest or n_pad % bn:
+                return default_schedule(m_pad, n_pad, n_sms, glu=glu, save=save)
+            items = m_pad // K.TM * (n_pad // bn)
+            return bn, items, max(1, min(items, n_sms))
+        return schedule
+
+    settings = {"default": default_schedule}
+    if args.sweep:
+        settings |= {f"bn {bn}": forced(bn) for bn in (256, 128, 64)}
+    out = {"card": card, "tag": args.tag, "cases": []}
+    for name, fn, plain, lib, nbytes, nflops in cases:
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, nflops / PEAK_BF16)
+        lib_ms = _device_ms(lib)
+        row = {"case": name, "bound_ms": bound, "bytes": nbytes, "flops": nflops,
+               "library_device_ms": lib_ms, "host_ms": host_ms(fn)}
+        for label, schedule in settings.items():
+            try:
+                if schedule is not None:
+                    K.row_gemm_schedule = schedule
+                check(name, fn, plain)
+                row[label] = _device_ms(fn)
+            finally:
+                if default_schedule is not None:
+                    K.row_gemm_schedule = default_schedule
+        out["cases"].append(row)
+        times = ", ".join(f"{k_} {row[k_]:.4f}" for k_ in settings)
+        print(f"[{args.tag}] {name}: device alone ms {times}; torch.bmm {lib_ms:.4f}; "
+              f"bound {bound:.4f} ({nbytes / 1e6:.1f} MB, {nflops / 1e9:.2f} GFLOP); "
+              f"host {row['host_ms']:.4f} ms a call",
+              flush=True)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -53,15 +53,17 @@
 // operands in shared memory (rows are the reduction, so A^T and B are both
 // MN-major: the transpose bits), 64 output rows each, with full/empty
 // mbarriers between the roles. float32 runs 64x64 output blocks on plain
-// FMAs (no TF32) through the same split and combine.
+// FMAs (no TF32) through the same split and combine. The PTX primitives
+// (mbarriers, wgmma, descriptors) are hopper.cuh's, shared with K1 and K4.
 #pragma once
 
+#include "hopper.cuh"
 #include "row_gemm.cuh"
 
 namespace dwgemm {
 
+using namespace hopper;
 using rowgemm::bf16;
-using rowgemm::cp_async16;
 using rowgemm::valid_row;
 
 constexpr int TM = rowgemm::TM;
@@ -190,103 +192,6 @@ __device__ __forceinline__ void finish(float (&acc)[NV], const Item& w, int chun
   store(acc);
 }
 
-// ------------------------------------------------------------ PTX helpers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-// The mbarrier gets one arrival once every cp.async this thread has issued
-// so far has landed (its pending count is not raised: counted at init).
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-// Shared-memory writes made through the generic proxy (st.shared,
-// cp.async) that happen before this fence are seen by later async-proxy
-// reads (wgmma) of the executing thread.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pins the accumulators after the last wait, so no read of them moves
-// above it.
-template <int NV>
-__device__ __forceinline__ void fence_operands(float (&d)[NV]) {
-#pragma unroll
-  for (int v = 0; v < NV; ++v) asm volatile("" : "+f"(d[v])::"memory");
-}
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled MN-major operand:
-// 8-row groups (the reduction dimension) 1,024 bytes apart, 64-column
-// (128-byte) atoms of the M or N dimension `lbo` bytes apart.
-__device__ __forceinline__ uint64_t mn_sw128_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 | static_cast<uint64_t>(1024 >> 4) << 32 |
-         1ull << 62;
-}
-
-// d (64 x 128, float32, the wgmma accumulator layout) += A B, A (64 x 16)
-// and B (16 x 128) bf16 in shared memory, both MN-major.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 // ---------------------------------------------------------------- bf16 path
 namespace tc {
 constexpr int BI = 128, BJ = 128;  // output block
@@ -327,7 +232,7 @@ dw_bf16(const bf16* __restrict__ a, const bf16* __restrict__ b,
       mbar_init(&full[s], 2 * 128);       // each producer thread's copies and stores
       mbar_init(&empty[s], CONSUMERS / 32);  // every consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   const int n_st = (w.t1 - w.t0) * (TM / BR);
@@ -347,7 +252,7 @@ dw_bf16(const bf16* __restrict__ a, const bf16* __restrict__ b,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BR / 16; ++kk)
-        wgmma_m64n128k16(acc, mn_sw128_desc(sa + kk * 16 * 128, HALF),
+        wgmma_m64n128k16<1>(acc, mn_sw128_desc(sa + kk * 16 * 128, HALF),
                          mn_sw128_desc(sb + kk * 16 * 128, HALF));
       wgmma_commit();
       wgmma_wait<1>();  // the stage before this one is read

@@ -5,7 +5,8 @@
 // Replaces the TPU kernel src/repro/kernels/cvmm.py:cvmm_fused_w2_pallas
 // (_fused_w2_kernel).
 //
-// K4's tile loop (row_gemm.cuh, tile-aligned rows, no gather) with the gate
+// The WMMA row-tile loop of row_gemm.cuh (row_gemm_bf16: tile-aligned
+// rows, no gather; K1 and K4 run its persistent wgmma mainloop) with the gate
 // in the epilogue, so the forward never makes a separate pass for
 // y * gate. The scatter-add of y back to the tokens stays outside.
 //

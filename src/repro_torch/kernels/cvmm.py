@@ -105,6 +105,58 @@ def _launch_status(name: str, rc: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# K1 and K4's schedule in bf16 (csrc/row_gemm.cuh, row_gemm_wgmma): about
+# one persistent block per SM walks the (row tile, column block) items.
+# ---------------------------------------------------------------------------
+
+# Items are as wide as the call allows (256 columns, or 128 with save_preact,
+# 64 with GLU, whose two products take 64 each) while every SM still gets at
+# least this many; else the next narrower width, down to 64. Wide items read
+# fewer bytes from L2 per operation (serve-long's prefill chunk); narrow ones
+# spread a small grid over more SMs (serving decode's w1: 160 items of 128
+# columns for 132 SMs). scripts/row_gemm_ab.py --sweep times the widths.
+ROW_GEMM_MIN_ITEMS_PER_SM = 2
+
+
+def row_gemm_schedule(m_pad: int, n_pad: int, n_sms: int, glu: bool = False,
+                      save: bool = False) -> Tuple[int, int, int]:
+    """(item width BN, items, grid) of one bf16 K1 or K4 call on a card of
+    ``n_sms`` SMs: items are (128-row tile, BN-column block) pairs, item i
+    covering tile i // (N_pad / BN) and columns BN * (i % (N_pad / BN)), and
+    the grid is min(items, n_sms) persistent blocks (csrc/row_gemm.cuh)."""
+    n_tiles = m_pad // TM
+    widest = 64 if glu else 128 if save else 256
+    bn = 64
+    for width in (256, 128):
+        if (width <= widest and n_pad % width == 0
+                and n_tiles * (n_pad // width) >= ROW_GEMM_MIN_ITEMS_PER_SM * n_sms):
+            bn = width
+            break
+    items = n_tiles * (n_pad // bn)
+    return bn, items, max(1, min(items, n_sms))
+
+
+def row_gemm_block_items(block: int, n_pad: int, schedule: Tuple[int, int, int]):
+    """The (tile, first column) of every item block ``block`` of the grid
+    walks, in its order: items block, block + grid, ... (row_gemm_wgmma's
+    walk)."""
+    bn, items, grid = schedule
+    n_cb = n_pad // bn
+    return [(i // n_cb, bn * (i % n_cb)) for i in range(block, items, grid)]
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    """The card's SM count (cudaDevAttrMultiProcessorCount), read once."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
+# ---------------------------------------------------------------------------
 # K4: grouped GEMM over expert-pure row tiles
 # ---------------------------------------------------------------------------
 
@@ -138,10 +190,11 @@ def cvmm(x_pad: torch.Tensor, tile_expert: torch.Tensor,
     if tile_expert.dtype != torch.int32:
         raise ValueError("cvmm: tile_expert must be int32")
     out = torch.empty((m_pad, n_pad), dtype=x_pad.dtype, device=x_pad.device)
-    fn = _fn("cvmm", "repro_cvmm", [_C, _C, _C, _C, _I, _I, _I, _I, _I, _C])
+    bn, _, grid = row_gemm_schedule(m_pad, n_pad, _sm_count(x_pad.device))
+    fn = _fn("cvmm", "repro_cvmm", [_C] * 4 + [_I] * 7 + [_C])
     rc = fn(x_pad.data_ptr(), tile_expert.data_ptr(), w.data_ptr(),
             out.data_ptr(), m_pad, k_pad, n_pad, e,
-            _DTYPE_CODE[x_pad.dtype],
+            _DTYPE_CODE[x_pad.dtype], bn, grid,
             torch.cuda.current_stream(x_pad.device).cuda_stream)
     _launch_status("cvmm", rc)
     LAUNCHES["cvmm"] += 1
@@ -259,12 +312,15 @@ def fused_w1(x: torch.Tensor, row_src: torch.Tensor, tile_expert: torch.Tensor,
     outs = [torch.empty((m_pad, g_pad), dtype=x.dtype, device=x.device)
             for _ in range(n_out)]
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - n_out)
+    bn, _, grid = row_gemm_schedule(m_pad, g_pad, _sm_count(x.device),
+                                    glu=w1g is not None, save=save_preact)
     fn = _fn("fused_w1", "repro_fused_w1",
-             [_C] * 8 + [_I] * 7 + [_C])
+             [_C] * 8 + [_I] * 9 + [_C])
     rc = fn(x.data_ptr(), row_src.data_ptr(), tile_expert.data_ptr(),
             w1.data_ptr(), None if w1g is None else w1g.data_ptr(), *ptrs,
             n_rows, m_pad, k_pad, g_pad, e, ACTIVATIONS[act],
-            _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+            _DTYPE_CODE[x.dtype], bn, grid,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _launch_status("fused_w1", rc)
     LAUNCHES["fused_w1"] += 1
     return tuple(outs) if save_preact else outs[0]

@@ -112,6 +112,158 @@ def test_fused_w2_kernel_matches_plain(cuda, dtype, tol):
                                K.fused_w2_plain(*args).float(), atol=tol, rtol=tol)
 
 
+# K1 and K4 on the persistent row-tile walk (csrc/row_gemm.cuh): shapes whose
+# grid is below and above the SM count, items 64, 128 and 256 columns wide,
+# K_pad 128 (two 64-deep slices, fewer than the ring's stages), N_pad 128 and
+# 1,536, and tile_expert entries outside [0, E), whose tiles must be zeros. (expert of each tile, K_pad,
+# N_pad); K1 gathers its rows from a routing with an expert that gets none.
+def _tiles_of(counts):
+    return [e for e, c in enumerate(counts) for _ in range(c)]
+
+
+K4_LAYOUTS = {
+    # serving decode at full width: 40 experts of one tile; 160 items of 128
+    # columns for w1, so 64-wide ones (320 items, one per SM and more)
+    "decode_e40": (list(range(40)), 1536, 512),
+    "decode_e40_w2": (list(range(40)), 512, 1536),
+    # a decode plan for E 4 at a few tokens: a grid of 32 blocks
+    "decode_e4_small_grid": (list(range(4)), 1536, 512),
+    # training's dX: K_pad 128, 273 tiles over 16 experts, 1,092 items
+    "training_dx_kpad128": (_tiles_of([17, 18, 16, 17, 19, 15, 17, 18, 16, 17, 18, 17, 16,
+                                       17, 18, 13]), 128, 512),
+    "n_pad_128": (_tiles_of([30, 0, 41, 60, 9]), 512, 128),
+    # expert 1 without tiles, a tile of expert E and one of -1: zeros
+    "experts_out_of_range": ([0, 0, 5, 2, 2, 3, -1, 4, 4], 256, 384),
+}
+
+
+def _bf16_norm_close(got, want) -> bool:
+    """chip_smoke.close's bf16 gate without the ulp bound: allclose at 3e-2
+    and ||got - want|| <= 1e-2 ||want||."""
+    g, w = got.float(), want.float()
+    rel = (torch.linalg.norm(g - w) / torch.linalg.norm(w).clamp_min(1e-30)).item()
+    return torch.allclose(g, w, atol=3e-2, rtol=3e-2) and rel <= 1e-2
+
+
+def _row_gemm_check(got, want, again, dtype, zero_rows):
+    """Against the plain version (want; rows of out-of-range tiles zero),
+    and the same bits on a second call."""
+    for g_, w_, a_ in zip(got, want, again):
+        assert torch.equal(g_.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           a_.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+        assert bool((g_[zero_rows] == 0).all())
+        if dtype == torch.bfloat16:
+            assert _bf16_norm_close(g_, w_)
+        else:
+            torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4)
+
+
+def _out_of_range(te, n_experts):
+    """Rows of tiles whose expert lies outside [0, E), and tile_expert with
+    those entries set to 0 for the plain version, which cannot index them."""
+    bad = (te < 0) | (te >= n_experts)
+    return bad.repeat_interleave(128), torch.where(bad, torch.zeros_like(te), te)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", K4_LAYOUTS)
+def test_cvmm_row_walk_matches_plain(cuda, layout, dtype):
+    tiles, k_pad, n_pad = K4_LAYOUTS[layout]
+    te = torch.tensor(tiles, dtype=torch.int32, device=cuda)
+    e = 40 if layout.startswith("decode_e40") else max(tiles) + (layout != "experts_out_of_range")
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((len(tiles) * 128, k_pad), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((e, k_pad, n_pad), generator=g, device=cuda) * k_pad ** -0.5).to(dtype)
+    zero_rows, te_plain = _out_of_range(te, e)
+    assert bool(zero_rows.any()) == (layout == "experts_out_of_range")
+    before = K.LAUNCHES["cvmm"]
+    got, again = K.cvmm(x, te, w), K.cvmm(x, te, w)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["cvmm"] == before + 2
+    want = K.cvmm_plain(x, te_plain, w)
+    want[zero_rows] = 0
+    _row_gemm_check((got,), (want,), (again,), dtype, zero_rows)
+
+
+def test_row_gemm_schedule_covers_both_sides_of_the_sm_count(cuda):
+    sms = K._sm_count(cuda)
+    grids = {name: K.row_gemm_schedule(len(t) * 128, n, sms)[2]
+             for name, (t, _, n) in K4_LAYOUTS.items()}
+    assert grids["decode_e4_small_grid"] < sms <= grids["training_dx_kpad128"]
+
+
+def _k1_inputs(dev, dtype, n, k, e, d, g, seed=13):
+    """K1's operands on a plan over ``e`` experts that never picks expert
+    1, with the first tile's expert set to E (out of range)."""
+    idx, gates, xf, w1, w1g, _ = _fused_case(dev, n=n, k=k, e=e, d=d, g=g, seed=seed)
+    plan = ops.make_moe_plan(idx, e, gates)
+    te = plan.tile_expert.clone()
+    te[0] = e
+    return (ops._pad_lane(xf, 1).to(dtype), plan.row_src, te, ops._pad_w(w1).to(dtype),
+            ops._pad_w(w1g).to(dtype))
+
+
+K1_SHAPES = {
+    # (tokens, top-k, experts, d_model, expert size): the training shape's
+    # widths on a small routing (grid < SMs), at 8,192 tokens (grid = SMs,
+    # several items a block; 128 columns wide), t0's widths there (N_pad
+    # 512: 256 columns wide without save_preact), and expert sizes 1,536
+    # and 384 (N_pad 1,536 and 384) from K_pad 128
+    "small": (300, 4, 5, 412, 128),
+    "training_widths_8k_tokens": (8192, 4, 16, 412, 128),
+    "t0_widths_8k_tokens": (8192, 4, 16, 412, 412),
+    "n_pad_1536": (600, 2, 6, 100, 1536),
+    "k_pad_128_n_pad_384": (900, 3, 7, 128, 300),
+}
+
+
+def _k1_check(cuda, dtype, shape, act, glu, save):
+    x, rs, te, w1, w1g = _k1_inputs(cuda, dtype, *K1_SHAPES[shape])
+    args = (x, rs, te, w1, w1g if glu else None)
+    zero_rows, te_plain = _out_of_range(te, w1.shape[0])
+    assert bool((rs.view(-1, 128) >= x.shape[0]).all(1).any())   # all-sentinel tiles
+    got = K.fused_w1(*args, act=act, save_preact=save)
+    again = K.fused_w1(*args, act=act, save_preact=save)
+    want = K.fused_w1_plain(x, rs, te_plain, *args[3:], act=act, save_preact=save)
+    torch.cuda.synchronize()
+    as_tuple = (lambda t: t if save else (t,))
+    want = as_tuple(want)
+    for w_ in want:
+        w_[zero_rows] = 0
+    _row_gemm_check(as_tuple(got), want, as_tuple(again), dtype, zero_rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["identity", "relu", "gelu", "silu"])
+@pytest.mark.parametrize("glu,save", [(False, False), (False, True),
+                                      (True, False), (True, True)])
+def test_fused_w1_row_walk_variants_match_plain(cuda, dtype, act, glu, save):
+    _k1_check(cuda, dtype, "small", act, glu, save)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("glu,save", [(False, False), (False, True), (True, True)])
+@pytest.mark.parametrize("shape", [s for s in K1_SHAPES if s != "small"])
+def test_fused_w1_row_walk_shapes_match_plain(cuda, dtype, shape, glu, save):
+    _k1_check(cuda, dtype, shape, "silu" if glu else "relu", glu, save)
+
+
+@pytest.mark.parametrize("fault", ["slice dropped", "slice read twice"])
+def test_cvmm_bf16_check_rejects_a_ring_fault(cuda, fault):
+    """The bf16 check (allclose 3e-2 and 1e-2 normwise) sees a K4 that
+    drops one 64-deep ring stage or adds it twice: the kernel's result on
+    x with that slice of K zeroed or doubled is exactly such a K4's."""
+    tiles, k_pad, n_pad = K4_LAYOUTS["decode_e40"]
+    te = torch.tensor(tiles, dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn((len(tiles) * 128, k_pad), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((40, k_pad, n_pad), generator=g, device=cuda) * k_pad ** -0.5).bfloat16()
+    bad = x.clone()
+    bad[:, 768:832] *= 0 if fault == "slice dropped" else 2      # the middle stage
+    assert _bf16_norm_close(K.cvmm(x, te, w), K.cvmm_plain(x, te, w))
+    assert not _bf16_norm_close(K.cvmm(bad, te, w), K.cvmm_plain(x, te, w))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("variant", ["stream_x", "stream_g", "stream_g_gate"])
 def test_dw_streamed_kernel_matches_plain(cuda, dtype, variant):
