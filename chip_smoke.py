@@ -16,7 +16,9 @@ the unfused rung, 15-18 K7 and the long-prompt serving run:
    tokens' top-8 rows in the decode plan's slots), w1 (1,536 -> 512) and w2
    (512 -> 1,536) widths, bf16 also within 1e-2 normwise and every K4 the
    same bits on a second call; the bf16 gate must also reject a K4 that
-   drops one 64-deep ring stage or reads it twice;
+   drops one 64-deep ring stage or reads it twice; K6 exactly, weighted and
+   not, at decode (1, 8 and 32 tokens) and at the prefill chunk's 256, and
+   at one vector a row (K_pad 8, bf16) through an unsorted ``row_src``;
 4. the main path: ``repro_torch.serving.Engine`` serving 8 requests on
    granite-moe-3b-a800m (sort dispatch) at full width and depth, random
    weights from ``--seed``; every MoE call must run on the two kernels,
@@ -27,14 +29,16 @@ the unfused rung, 15-18 K7 and the long-prompt serving run:
 6. each kernel timed by back-to-back CUDA events and device alone beside
    its bound, its plain version and one PyTorch library call for the same
    function, timed the same two ways: K4 at decode and at the prefill
-   chunk's two widths (``torch.bmm``), K6 (``index_select``);
+   chunk's two widths (``torch.bmm``), K6 at decode and at the prefill
+   chunk (``index_select``);
 7. the training kernels (K1 in its four variants, K2, K3 in its three)
    against their plain versions at wt103-47m-moe's training shapes (batch
-   32 x 257 tokens, top-4 of 16 experts), in bf16 (K1 and K4 also within
-   1e-2 normwise) and float32, with an expert that gets no rows and
-   all-sentinel slack tiles, and K3 also on a skewed plan (one expert with
-   3x the mean rows, over many of its chunks); K1, K4 and the skewed K3
-   give the same bits on a second call;
+   32 x 257 tokens, top-4 of 16 experts), in bf16 (K1, K2 and K4 also
+   within 1e-2 normwise) and float32, with an expert that gets no rows and
+   all-sentinel slack tiles (K2's slack rows zero), and K3 also on a skewed
+   plan (one expert with 3x the mean rows, over many of its chunks); K1,
+   K2, K4 and the skewed K3 give the same bits on a second call; the bf16
+   gate must also reject a K2 that applies row r + 8's gate to row r;
 8. one full-width training step with the kernels against the same step with
    the plain versions and the same expert choices, gradient leaf by leaf,
    and the first 3 losses: in bf16 with the depth cut to 2 and in float32
@@ -46,7 +50,8 @@ the unfused rung, 15-18 K7 and the long-prompt serving run:
    in process; the loss must be finite and fall, and every step must launch
    exactly 2 K1, 1 K2, 2 K3 and 1 K4 per MoE layer;
 10. the step's time, tokens/s, peak memory and a profile (device-busy
-    share, top kernels, exactly one K3 device kernel per wrapper call),
+    share, top kernels, exactly one K1, K2, K3 and K4 device kernel per
+    wrapper call, so K2 and K4 are told apart),
     each training kernel timed by back-to-back events and device alone
     beside its bound, its plain version and a ``torch.bmm`` yardstick,
     and K3's three variants on the uniform plan and on the profiled
@@ -62,7 +67,8 @@ the unfused rung, 15-18 K7 and the long-prompt serving run:
 13. phase 9's run on the unfused rung: finite, falling loss, exactly 4 K4
     and 2 K5 per MoE layer every step and no K1, K2 or K3, and a last-5
     mean loss within 2 % of phase 9's;
-14. phase 10's measurements of that run (one K5 device kernel per call),
+14. phase 10's measurements of that run (one K4 and K5 device kernel per
+    call),
     K5 (and K4's forward calls) timed beside the bound, the plain version
     and ``torch.bmm``, and K5 on the uniform and the step's own plan;
 15. K7 against its plain version on the card, in bf16 and float32: the
@@ -140,6 +146,9 @@ K4_CASES = [(5120, SERVE_D, SERVE_G, "decode"), (5120, SERVE_G, SERVE_D, "decode
 # tiles an expert), a random tile layout, and serve-long's prefill chunk
 # (M_pad 81,920 = 40 experts x 2,048 rows on the decode plan), at w1's and
 # w2's widths.
+K6_TOKENS = (1, 8, 32, LONG["prefill_chunk"])
+# K6 in phases 3 and 6: decode at 1, 8 and 32 tokens (one 128-row block,
+# mostly sentinels) and serve-long's prefill chunk of 256 (256 rows).
 K7_TOL = {"bfloat16": 3e-2, "float32": 5e-5}
 # K7 against its plain version: the reference oracle's tolerances
 # (tests/test_kernels_flash.py); bf16 also rounds P to bf16 for the P V
@@ -387,12 +396,17 @@ def main() -> None:
     k4["launches_serve_long"] = results["serve_long"]["launches"]["cvmm"]
     k4["launches_training"] = train["launches"]["cvmm"]
     k4["launches_training_unfused"] = train["launches_unfused"]["cvmm"]
+    k6 = row("gather_rows", f"n 8 d {D} into 128 rows",
+             "src/repro_torch/kernels/csrc/gather_rows.cu", "src/repro/kernels/cvmm.py:621")
+    k6["prefill_chunk"] = [
+        {key: t[key] for key in ("shape", "ms", "device_ms", "plain_ms", "library_ms",
+                                 "library_device_ms", "bound_ms", "bound_by", "max_abs_err")}
+        for t in timings if t["kernel"] == "gather_rows" and t["dtype"] == "bfloat16"
+        and t["path"] == "serve-long prefill chunk"]
+    k6["launches_serve_long"] = results["serve_long"]["launches"]["gather_rows"]
     line = {"kernels": [
         train["rows"]["fused_w1"], train["rows"]["fused_w2"],
-        train["rows"]["dw_streamed"], k4, train["rows"]["cvmm_dw"],
-        row("gather_rows", f"n 8 d {D} into 128 rows",
-            "src/repro_torch/kernels/csrc/gather_rows.cu",
-            "src/repro/kernels/cvmm.py:621"), k7_row]}
+        train["rows"]["dw_streamed"], k4, train["rows"]["cvmm_dw"], k6, k7_row]}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1, default=str))
@@ -480,17 +494,33 @@ def _serving_kernels(dev, gen, K, ops, results):
                     if b_ok:
                         fail(f"the bf16 gate let a faulty cvmm ({fault}) through")
                     normwise[("faulty cvmm " + fault, m_pad, k, n, layout, dn)] = b_rel
-        for n in (1, 8, 32):
+        for n in K6_TOKENS:
             for weighted in (False, True):
                 x, rs, wt = k6_inputs(n, dt, weighted)
                 got, want = K.gather_rows(x, rs, wt), K.gather_rows_plain(x, rs, wt)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
-                print(f"[3] gather_rows n {n} d {D} weighted {weighted} {dn}: "
-                      f"max_abs_err {err:.3g} (exact) {'ok' if err == 0 else 'BAD'}")
+                print(f"[3] gather_rows n {n} d {D} into {rs.numel()} rows weighted "
+                      f"{weighted} {dn}: max_abs_err {err:.3g} (exact) "
+                      f"{'ok' if err == 0 else 'BAD'}")
                 if err != 0:
                     fail(f"gather_rows disagrees with gather_rows_plain at n {n} {dn}")
                 errs[("gather_rows", n, weighted, dn)] = err
+    # K6 on one 16-byte vector a row (K_pad 8 in bf16) through an unsorted
+    # row_src that mixes both kinds of sentinel over several row groups
+    x = torch.randn((50, 8), generator=gen, device=dev).to(torch.bfloat16)
+    rs = torch.randint(-1, 56, (384,), generator=gen, device=dev, dtype=torch.int32)
+    rs[::7], rs[3::11] = 55, -1
+    for weighted in (False, True):
+        wt = torch.rand((384,), generator=gen, device=dev) if weighted else None
+        err = (K.gather_rows(x, rs, wt).float() - K.gather_rows_plain(x, rs, wt).float()
+               ).abs().max().item()
+        print(f"[3] gather_rows K_pad 8 bfloat16, 384 unsorted slots from 50 rows with "
+              f"sentinels -1 and 55, weighted {weighted}: max_abs_err {err:.3g} (exact) "
+              f"{'ok' if err == 0 else 'BAD'}")
+        if err != 0:
+            fail("gather_rows disagrees with gather_rows_plain at K_pad 8")
+        errs[("gather_rows K_pad 8", weighted)] = err
     results["phase3"] = {" ".join(map(str, k)): v for k, v in errs.items()}
     results["phase3_normwise"] = {" ".join(map(str, k)): v for k, v in normwise.items()}
     return errs, normwise
@@ -525,13 +555,14 @@ def _time_serving_kernels(dev, gen, K, ops, errs, normwise, results):
                 "bound_by": "bytes" if bound_b >= bound_f else "operations",
                 "max_abs_err": errs[("cvmm", m_pad, k, n, layout, dn)],
                 "normwise": normwise[("cvmm", m_pad, k, n, layout, dn)]})
-        for n in (1, 8, 32):
+        for n in K6_TOKENS:
             x, rs, _ = k6_inputs(n, dt, False)
             xz = torch.cat([x, x.new_zeros((1, D))])
             nbytes = (n + rs.numel()) * D * x.element_size() + rs.numel() * 4
             timings.append({
                 "kernel": "gather_rows", "shape": f"n {n} d {D} into {rs.numel()} rows",
-                "dtype": dn, "path": "serving decode",
+                "dtype": dn, "path": ("serve-long prefill chunk" if n == LONG["prefill_chunk"]
+                                      else "serving decode"),
                 "ms": _time_ms(lambda: K.gather_rows(x, rs)),
                 "device_ms": _device_ms(lambda: K.gather_rows(x, rs)),
                 "plain_ms": _time_ms(lambda: K.gather_rows_plain(x, rs)),
@@ -637,9 +668,10 @@ def _training_slice(seed, dev, gen, K, results):
     cases.append(("cvmm dX = dh w1^T", "cvmm", "all experts", lambda t, p: [
         f(t["dh"], p.tile_expert, t["w1"].transpose(1, 2).contiguous())
         for f in (K.cvmm, K.cvmm, K.cvmm_plain)]))
-    cases.append(("fused_w2", "fused_w2", "all experts", lambda t, p: [
-        f(t["u"], p.tile_expert, t["w2"], p.gate_tiles.reshape(-1))
-        for f in (K.fused_w2, K.fused_w2_plain)]))
+    for pkey in ("all experts", "one expert empty"):
+        cases.append((f"fused_w2, {pkey}", "fused_w2", pkey, lambda t, p: [
+            f(t["u"], p.tile_expert, t["w2"], p.gate_tiles.reshape(-1))
+            for f in (K.fused_w2, K.fused_w2, K.fused_w2_plain)]))
     for variant, stream_x, gated in (("stream_x (dW1)", True, False),
                                      ("stream_g (dW2, no gate)", False, False),
                                      ("stream_g gated (dW2)", False, True)):
@@ -672,18 +704,41 @@ def _training_slice(seed, dev, gen, K, results):
                      for a, b in zip(got, want)) and len(got) == len(want)
             if kernel == "dw_streamed" and pkey == "one expert empty":
                 ok = ok and bool((got[0][empty] == 0).all())
-            # K1 and K4 in bf16 also within BF16_REL normwise (close's gate)
+            zeros = ""
+            if kernel == "fused_w2":    # slack rows (gate 0), all-sentinel tiles among them
+                slack = plans[pkey].row_src >= n
+                ok = ok and bool((got[0][slack] == 0).all())
+                zeros = f", zeros on its {int(slack.sum())} slack rows"
+            # K1, K2 and K4 in bf16 also within BF16_REL normwise (close's gate)
             rel = max(close(a, b, tol, dn, ulps=False)[2] for a, b in zip(got, want))
-            if kernel in ("fused_w1", "cvmm") and dn == "bfloat16":
+            normed = kernel in ("fused_w1", "cvmm", "fused_w2") and dn == "bfloat16"
+            if normed:
                 ok = ok and rel <= BF16_REL
             print(f"[7] {name} {dn}: max_abs_err {err:.3g} (tol {tol}), normwise {rel:.3g}"
-                  f"{f' (limit {BF16_REL})' if kernel in ('fused_w1', 'cvmm') and dn == 'bfloat16' else ''}, "
+                  f"{f' (limit {BF16_REL})' if normed else ''}, "
                   f"{100 * differ:.3f}% of elements differ"
-                  f"{', same bits twice' if len(outs) == 3 else ''} {'ok' if ok else 'BAD'}")
+                  f"{', same bits twice' if len(outs) == 3 else ''}{zeros} "
+                  f"{'ok' if ok else 'BAD'}")
             if not ok:
                 fail(f"{name} disagrees with its plain version in {dn}")
             errs[(name, dn)] = err
             normwise[(name, dn)] = rel
+            if kernel == "fused_w2" and dn == "bfloat16":
+                # The bf16 gate must reject a K2 whose epilogue applies row
+                # r + 8's gate to row r and r's to r + 8 in every 16-row
+                # group: the kernel run on gates exchanged so computes
+                # exactly such a K2's output.
+                p, t = plans[pkey], tens[pkey]
+                swapped = p.gate_tiles.reshape(-1, 2, 8).flip(1).reshape(-1)
+                b_ok, b_err, b_rel, lim = close(K.fused_w2(t["u"], p.tile_expert, t["w2"],
+                                                           swapped), want[0], tol, dn,
+                                                ulps=False)
+                print(f"[7] faulty fused_w2 (gates of rows r and r + 8 exchanged), {pkey} "
+                      f"{dn}: max_abs_err {b_err:.3g}, normwise {b_rel:.3g} ({lim}): "
+                      f"{'PASSED, the gate is too loose' if b_ok else 'rejected'}")
+                if b_ok:
+                    fail("the bf16 gate let a faulty fused_w2 (gate rows exchanged) through")
+                normwise[("faulty " + name, dn)] = b_rel
         del tens
     results["phase7"] = {f"{a} {b}": v for (a, b), v in errs.items()}
     results["phase7_normwise"] = {f"{a} {b}": v for (a, b), v in normwise.items()}
@@ -1321,9 +1376,10 @@ def _step_gates(tag, cfg, rung, three_steps, K, ops, routing, cross_rung=None):
 
 def _profile_train_step(tag, lm, state, batch, step, dev, K, ops):
     """One full-width training step under torch.profiler (``_profile``).
-    Fails unless the profile holds exactly one K3 or K5 device kernel per
-    call of its wrapper in the step. Returns the profile and the plan of the
-    step's first MoE call (layer 0)."""
+    Fails unless the profile holds exactly one device kernel of K1, K2, K3,
+    K4 and K5 per call of its wrapper in the step (which also shows that
+    the profile names K2 and K4, one template's instances, apart). Returns
+    the profile and the plan of the step's first MoE call (layer 0)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1340,7 +1396,9 @@ def _profile_train_step(tag, lm, state, batch, step, dev, K, ops):
 
     K.reset_launch_counts()
     prof = _profile(tag, "training step", run, top_n=10)
-    for kernel, label in (("dw_streamed", "K3 dw_streamed"), ("cvmm_dw", "K5 cvmm_dw")):
+    for kernel, label in (("fused_w1", "K1 fused_w1"), ("fused_w2", "K2 fused_w2"),
+                          ("dw_streamed", "K3 dw_streamed"), ("cvmm", "K4 cvmm"),
+                          ("cvmm_dw", "K5 cvmm_dw")):
         calls, kernels = K.LAUNCHES[kernel], prof["port_kernels"].get(label, (0, 0.0))[0]
         print(f"[{tag}] {label}: {calls} wrapper calls, {kernels} device kernels in the "
               "profiled step")
@@ -1405,9 +1463,8 @@ def _profile(tag, label, run, top_n: int = 8):
 
 def _port_kernel(symbol):
     """Which of this port's bf16 kernels a profiled CUDA symbol is, or None.
-    K1 and K4 are instances of row_gemm_wgmma<BN, GATHER, GLU, SAVE>
-    (csrc/row_gemm.cuh): K1 gathers, K4 does not. K2 is an instance of
-    row_gemm_bf16<BN, GATHER, GLU, SAVE, GATE> with the gate.
+    K1, K2 and K4 are instances of row_gemm_wgmma<BN, GATHER, GLU, SAVE,
+    GATE> (csrc/row_gemm.cuh): K2 has the gate, K1 gathers, K4 does neither.
     K3 and K5 are instances of dw_bf16<OPERANDS, GATE> (csrc/dw_gemm.cuh):
     K5 gathers neither operand (OPERANDS 0). K6 is gather_rows_kernel, K7
     flash_fwd_bf16<D>."""
@@ -1419,11 +1476,11 @@ def _port_kernel(symbol):
         operands = symbol.split("dw_bf16<", 1)[1].split(",", 1)[0].strip()
         return "K5 cvmm_dw" if operands.endswith("0") else "K3 dw_streamed"
     if "row_gemm_wgmma<" in symbol:
-        args = symbol.split("row_gemm_wgmma<", 1)[1].split(">", 1)[0]
-        gather = args.split(",")[1].strip()
-        return "K1 fused_w1" if gather == "true" else "K4 cvmm"
-    if "row_gemm_bf16<" in symbol:
-        return "K2 fused_w2"
+        args = [a.strip() for a in symbol.split("row_gemm_wgmma<", 1)[1].split(">", 1)[0]
+                .split(",")]
+        if args[4] == "true":
+            return "K2 fused_w2"
+        return "K1 fused_w1" if args[1] == "true" else "K4 cvmm"
     return None
 
 
@@ -1486,7 +1543,8 @@ def _time_training_kernels(tag, rung, K, plan, t, n, d, g, E, errs):
          lambda: K.fused_w2(t["u"], te, t["w2"], gate),
          lambda: K.fused_w2_plain(t["u"], te, t["w2"], gate),
          lambda: torch.bmm(ue, t["w2"]),
-         routed_g + w_bf16 + routed_d + gates + te.numel() * 4, ("fused_w2", "bfloat16")),
+         routed_g + w_bf16 + routed_d + gates + te.numel() * 4,
+         ("fused_w2, all experts", "bfloat16")),
         ("dw_streamed stream_x (dW1)",
          lambda: K.dw_streamed(t["x"], t["dh"], rs, te, E, stream_x=True),
          lambda: K.dw_streamed_plain(t["x"], t["dh"], rs, te, E, stream_x=True),

@@ -1,28 +1,33 @@
 #!/usr/bin/env python3
-"""Time K1 (``fused_w1``) and K4 (``cvmm``) in bf16 on one CUDA card at the
-main paths' shapes, device alone, beside ``torch.bmm`` and the bound.
+"""Time K1 (``fused_w1``), K2 (``fused_w2``), K4 (``cvmm``) and K6
+(``gather_rows``) in bf16 on one CUDA card at the main paths' shapes, device
+alone, beside one PyTorch call for the same function and the bound.
 
-    python3 scripts/row_gemm_ab.py [--src DIR] [--tag NAME] [--sweep] [--seed 0]
+    python3 scripts/row_gemm_ab.py [--src DIR] [--tag NAME] [--sweep] [--k6] [--seed 0]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (default
 this checkout's), so that one call can time two trees in turns: unpack the
 other tree with ``git archive`` into a directory ``.gitignore`` lists and run
 this script with ``--src`` pointing there, then without, and so on. Each tree
 builds its kernels into its own ``build/repro_torch/``. ``--sweep`` (this
-checkout's kernels only) also times every case with its items forced to 256,
-128 and 64 columns where the call allows that width (``kernels.cvmm.
-row_gemm_schedule`` replaced for the run).
+checkout's kernels only) also times every GEMM case with its items forced
+to 256, 128 and 64 columns where the call allows that width (``kernels.cvmm.
+row_gemm_schedule`` replaced for the run); ``--k6`` (this checkout's only)
+times every K6 case with each of 1, 2, 4 and 8 rows a block and 1, 2 and 4
+vectors a lane (``kernels.cvmm.gather_rows_schedule`` replaced).
 
 Shapes: serve-long's prefill chunk (M_pad 81,920 = 40 experts x 2,048 rows,
 1,536 -> 512 and 512 -> 1,536, x_pad holding the chunk's 2,048 routed rows
 of a random top-8 routing of 256 tokens), serving decode (M_pad 5,120), and
 wt103-47m-moe's training step (8,224 tokens x top-4 of 16 experts, d_model
-412, expert size 128): K1's forward (relu, h saved) and t0, K4's dX and the
-unfused forward's two calls. Each kernel is first held against its plain
-version (3e-2 allclose and 1e-2 normwise); beside its device time the host's
-time to issue one call (wrapper and launch) is timed too. Prints the card's
-name and power limit, one line per case, and one JSON line of every number
-last.
+412, expert size 128): K1's forward (relu, h saved) and t0, K2's forward,
+K4's dX and the unfused forward's two calls; K6 gathering granite-moe's
+token rows (d_model 1,536) at decode (1, 8 and 32 tokens into 128 rows) and
+at serve-long's prefill chunk (256 into 256), beside ``index_select``. Each
+kernel is first held against its plain version (GEMMs 3e-2 allclose and
+1e-2 normwise, K6 exactly); beside its device time the host's time to
+launch one call (wrapper included) is timed too. Prints the card's name and
+power limit, one line per case, and one JSON line of every number last.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ def main() -> None:
     ap.add_argument("--src", type=Path, default=ROOT / "src")
     ap.add_argument("--tag", default="this tree")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--k6", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -67,7 +73,7 @@ def main() -> None:
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
 
-    cases = []     # (name, kernel fn, plain fn, library fn, bytes, flops)
+    cases = []     # (name, kernel fn, plain fn, library fn, bytes, flops, kind)
 
     # serving: the decode plan's layout, 40 experts of granite-moe-3b-a800m
     E, D, G = 40, 1536, 512
@@ -86,7 +92,17 @@ def main() -> None:
                           lambda x=x, te=te, w=w: K.cvmm_plain(x, te, w),
                           lambda x=x, w=w, k=k, cap=cap, e=E: torch.bmm(x.view(e, cap, k), w),
                           (x.numel() + w.numel() + m_pad * n) * 2 + te.numel() * 4,
-                          2 * m_pad * k * n))
+                          2 * m_pad * k * n, "gemm"))
+    # K6: the decode plan's dedup gather of the token rows
+    for tokens in (1, 8, 32, 256):
+        x = rnd(tokens, D)
+        rs = ops.make_decode_plan(tokens, 8, E, device=dev).gather.row_src
+        xz = torch.cat([x, x.new_zeros((1, D))])
+        cases.append((f"K6 n {tokens} d {D} into {rs.numel()} rows",
+                      lambda x=x, rs=rs: K.gather_rows(x, rs),
+                      lambda x=x, rs=rs: K.gather_rows_plain(x, rs),
+                      lambda xz=xz, rs=rs: torch.index_select(xz, 0, rs),
+                      (tokens + rs.numel()) * D * 2 + rs.numel() * 4, 0, "gather"))
 
     # training: wt103-47m-moe, batch 32 x 257 tokens, top-4 of 16 experts
     n, k, E, d, g = 32 * 257, 4, 16, 412, 128
@@ -117,10 +133,11 @@ def main() -> None:
 
     xe, dye = expert_major(xg), expert_major(K.gather_rows_plain(dy, rs))
     ue, dhe = expert_major(u), expert_major(dh)
+    gate = plan.gate_tiles.reshape(-1)
     tok, routed_g, routed_d = n * d * 2, rows * g * 2, rows * d * 2
     w_b, idx_b, te_b = E * d * g * 2, rows * 4 + te.numel() * 4, te.numel() * 4
     flops = 2 * rows * d * g
-    cases += [
+    cases += [(*case, "gemm") for case in (
         ("K1 forward relu+h (training)",
          lambda: K.fused_w1(x, rs, te, w1, act="relu", save_preact=True),
          lambda: K.fused_w1_plain(x, rs, te, w1, act="relu", save_preact=True),
@@ -129,6 +146,9 @@ def main() -> None:
          lambda: K.fused_w1(dy, rs, te, w2t, act="identity"),
          lambda: K.fused_w1_plain(dy, rs, te, w2t, act="identity"),
          lambda: torch.bmm(dye, w2t), tok + w_b + routed_g + idx_b, flops),
+        ("K2 y = (u_pad w2) * gate (training)", lambda: K.fused_w2(u, te, w2, gate),
+         lambda: K.fused_w2_plain(u, te, w2, gate), lambda: torch.bmm(ue, w2),
+         routed_g + w_b + routed_d + rows * 4 + te_b, flops),
         ("K4 dX = dh w1^T (training)", lambda: K.cvmm(dh, te, w1t),
          lambda: K.cvmm_plain(dh, te, w1t), lambda: torch.bmm(dhe, w1t),
          routed_g + w_b + routed_d + te_b, flops),
@@ -138,7 +158,7 @@ def main() -> None:
         ("K4 y = u_pad w2 (unfused forward)", lambda: K.cvmm(u, te, w2),
          lambda: K.cvmm_plain(u, te, w2), lambda: torch.bmm(ue, w2),
          routed_g + w_b + routed_d + te_b, flops),
-    ]
+    )]
 
     def host_ms(fn, iters=200):
         """The host's time to issue one call (wrapper and launch), the
@@ -152,12 +172,16 @@ def main() -> None:
         torch.cuda.synchronize()
         return 1e3 * elapsed / iters
 
-    def check(name, fn, plain):
+    def check(name, fn, plain, kind):
         got, want = fn(), plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
+            if kind == "gather":
+                if not torch.equal(a, b):
+                    sys.exit(f"FAIL: {name} differs from its plain version")
+                continue
             a, b = a.float(), b.float()
             rel = (torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp_min(1e-30)).item()
             if not (torch.allclose(a, b, atol=3e-2, rtol=3e-2) and rel <= 1e-2):
@@ -168,36 +192,49 @@ def main() -> None:
     default_schedule = getattr(K, "row_gemm_schedule", None)
 
     def forced(bn):
-        def schedule(m_pad, n_pad, n_sms, glu=False, save=False):
+        def schedule(m_pad, k_pad, n_pad, n_sms, glu=False, save=False):
             widest = 64 if glu else 128 if save else 256
             if bn > widest or n_pad % bn:
-                return default_schedule(m_pad, n_pad, n_sms, glu=glu, save=save)
+                return default_schedule(m_pad, k_pad, n_pad, n_sms, glu=glu, save=save)
             items = m_pad // K.TM * (n_pad // bn)
             return bn, items, max(1, min(items, n_sms))
         return schedule
 
-    settings = {"default": default_schedule}
+    # --k6: each K6 case with a forced (rows a block, vectors a lane)
+    def forced_k6(rows, vpl):
+        return lambda m_pad, row_bytes, n_sms: (rows, vpl)
+
+    # per kind: the schedule function replaced, and its settings by label
+    settings = {"gemm": ("row_gemm_schedule", {"default": default_schedule}),
+                "gather": ("gather_rows_schedule",
+                           {"default": getattr(K, "gather_rows_schedule", None)})}
     if args.sweep:
-        settings |= {f"bn {bn}": forced(bn) for bn in (256, 128, 64)}
+        settings["gemm"][1].update({f"bn {bn}": forced(bn) for bn in (256, 128, 64)})
+    if args.k6:
+        settings["gather"][1].update({f"rows {r} vpl {v}": forced_k6(r, v)
+                                      for r in (1, 2, 4, 8) for v in (1, 2, 4)})
     out = {"card": card, "tag": args.tag, "cases": []}
-    for name, fn, plain, lib, nbytes, nflops in cases:
+    for name, fn, plain, lib, nbytes, nflops, kind in cases:
         bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, nflops / PEAK_BF16)
         lib_ms = _device_ms(lib)
         row = {"case": name, "bound_ms": bound, "bytes": nbytes, "flops": nflops,
                "library_device_ms": lib_ms, "host_ms": host_ms(fn)}
-        for label, schedule in settings.items():
+        attr, choices = settings[kind]
+        default = choices["default"]
+        for label, schedule in choices.items():
             try:
                 if schedule is not None:
-                    K.row_gemm_schedule = schedule
-                check(name, fn, plain)
+                    setattr(K, attr, schedule)
+                check(name, fn, plain, kind)
                 row[label] = _device_ms(fn)
             finally:
-                if default_schedule is not None:
-                    K.row_gemm_schedule = default_schedule
+                if default is not None:
+                    setattr(K, attr, default)
         out["cases"].append(row)
-        times = ", ".join(f"{k_} {row[k_]:.4f}" for k_ in settings)
-        print(f"[{args.tag}] {name}: device alone ms {times}; torch.bmm {lib_ms:.4f}; "
-              f"bound {bound:.4f} ({nbytes / 1e6:.1f} MB, {nflops / 1e9:.2f} GFLOP); "
+        times = ", ".join(f"{k_} {row[k_]:.4f}" for k_ in choices)
+        lib_name = "torch.bmm" if kind == "gemm" else "index_select"
+        print(f"[{args.tag}] {name}: device alone ms {times}; {lib_name} {lib_ms:.4f}; "
+              f"bound {bound:.4f} ({nbytes / 1e6:.2f} MB, {nflops / 1e9:.2f} GFLOP); "
               f"host {row['host_ms']:.4f} ms a call",
               flush=True)
     print(json.dumps(out))

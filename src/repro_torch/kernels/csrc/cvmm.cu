@@ -56,8 +56,8 @@ extern "C" int repro_cvmm(const void* x, const void* tile_expert, const void* w,
   if (dtype == 1) {
     return static_cast<int>(launch_wgmma<false, false, false>(
         bn, grid, static_cast<const bf16*>(x), nullptr, m_pad, te,
-        static_cast<const bf16*>(w), nullptr, static_cast<bf16*>(out), nullptr, nullptr,
-        m_pad, k_pad, n_pad, n_experts, kIdentity, s));
+        static_cast<const bf16*>(w), nullptr, nullptr, static_cast<bf16*>(out), nullptr,
+        nullptr, m_pad, k_pad, n_pad, n_experts, kIdentity, s));
   } else if (dtype == 0) {
     dim3 grid2(n_pad / fp::BN, m_pad / fp::BM);
     row_gemm_f32<false, false, false, false><<<grid2, fp::THREADS, 0, s>>>(

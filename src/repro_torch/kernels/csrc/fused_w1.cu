@@ -44,7 +44,7 @@ static cudaError_t launch(const void* x, const int* rs, int n_rows, const int* t
   if (dtype == 1)
     return launch_wgmma<true, GLU, SAVE>(
         bn, grid, static_cast<const bf16*>(x), rs, n_rows, te, static_cast<const bf16*>(w1),
-        static_cast<const bf16*>(w1g), static_cast<bf16*>(u), static_cast<bf16*>(h),
+        static_cast<const bf16*>(w1g), nullptr, static_cast<bf16*>(u), static_cast<bf16*>(h),
         static_cast<bf16*>(hg), m_pad, k_pad, g_pad, n_experts, act, s);
   dim3 grid2(g_pad / fp::BN, m_pad / fp::BM);
   row_gemm_f32<true, GLU, SAVE, false><<<grid2, fp::THREADS, 0, s>>>(

@@ -3,7 +3,7 @@
 //
 //     h[t] = A[t] @ w[tile_expert[t]]     for every 128-row plan tile t
 //
-// with an epilogue that applies an activation (and GLU), scales rows by a
+// with an epilogue that applies an activation (and GLU) or scales rows by a
 // float32 gate, and writes u (and the pre-activations h, hg) rounded once.
 //
 // Layout contract (kernels/ops.py): every 128-row tile belongs to one
@@ -14,15 +14,15 @@
 // [0, n_rows)) is a zero row that is never read. A tile whose tile_expert
 // entry lies outside [0, E) is written as zeros.
 //
-// Three mainloops:
+// Two mainloops:
 //
-// row_gemm_wgmma (bf16, K1 and K4): persistent and warp-specialised. About
+// row_gemm_wgmma (bf16, K1, K2 and K4): persistent and warp-specialised. About
 // one block per SM walks the (128-row tile, BN-column block) items
 // blockIdx.x, blockIdx.x + gridDim.x, ... (tile-major, so neighbouring
 // blocks share A tiles and expert weights in L2). One producer thread keeps
 // a ring of 3-5 stages full, each a 64-deep slice of the tile's 128 A rows
 // (K-major) and of each weight's BN columns (MN-major), 128-byte swizzled:
-// the weights, and A where it is tile-aligned (K4), by TMA; with GATHER
+// the weights, and A where it is tile-aligned (K2, K4), by TMA; with GATHER
 // (K1) the whole producer warpgroup copies A's rows through row_src by
 // 16-byte cp.async with the swizzle computed by hand, since TMA cannot
 // gather rows, and stores a sentinel row as zeros. The producer runs on
@@ -30,18 +30,15 @@
 // warpgroups run wgmma (m64nBNk16) on 64 rows each with float32
 // accumulators in registers; the epilogue applies the activation (chosen
 // at compile time: a runtime choice per element cost 3x the mainloop), GLU
-// and the saved h, hg, rounds once to bf16 into shared memory and stores
-// whole rows 16 bytes a thread, while the producer fills the next item's
-// stages. BN is 256, 128 or 64 (kernels/cvmm.py's row_gemm_schedule picks
-// it and the grid): wide items read fewer L2 bytes per operation, narrow
-// ones spread a small grid over more SMs; GLU takes 64 for each of its two
-// products, save_preact at most 128 (shared memory for the staged
-// outputs). Each output element is one block's float32 sum in a fixed
-// order, so every call gives the same bits.
-// row_gemm_bf16 (bf16, K2 only; moving K2 onto row_gemm_wgmma is next):
-// one block per (128-row tile, BN-column block), 8 warps of WMMA 16x16x16
-// fragments with float accumulators, 128x32 slices of A and 32xBN slices
-// of w through a two-stage cp.async ring.
+// and the saved h, hg, or (GATE, K2, also a compile-time flag) multiplies
+// each float32 accumulator by its row's float32 gate, rounds once to bf16
+// into shared memory and stores whole rows 16 bytes a thread, while the
+// producer fills the next item's stages. BN is 256, 128 or 64
+// (kernels/cvmm.py's row_gemm_schedule picks it and the grid): wide items
+// read fewer L2 bytes per operation, narrow ones spread a small grid over
+// more SMs; GLU takes 64 for each of its two products, save_preact at most
+// 128 (shared memory for the staged outputs). Each output element is one
+// block's float32 sum in a fixed order, so every call gives the same bits.
 // row_gemm_f32 (float32, K1, K2 and K4): one block per (64-row, 64-column)
 // output block, 16x16 threads with 4x4 outputs each on plain FMAs (no
 // TF32), so it keeps full float32 accuracy.
@@ -49,7 +46,6 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -57,8 +53,6 @@
 namespace rowgemm {
 
 using hopper::cp_async16;
-using hopper::cp_async_commit;
-using hopper::cp_async_wait;
 
 constexpr int TM = 128;  // plan row tile: every tile belongs to one expert
 
@@ -91,179 +85,7 @@ __device__ __forceinline__ bool valid_row(int src, int n_rows) {
   return src >= 0 && src < n_rows;
 }
 
-// ------------------------------------------------------ bf16 path, WMMA (K2)
-namespace tc {
-constexpr int BM = 128, BK = 32;
-constexpr int WARPS_M = 4, WARPS_N = 2;
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int A_LD = BK + 8;  // padded rows: fewer bank conflicts, and
-constexpr int A_STAGE = BM * A_LD;  // fragment pointers stay 32-B aligned
-static_assert(BM == TM, "one block row == one plan tile");
-}  // namespace tc
-
 using bf16 = __nv_bfloat16;
-using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-
-// Round one 16x16 float fragment to bf16 and write it to out (row-major,
-// leading dimension ld) at (row0, col0); rows are scaled by gate[row] first
-// when gate is given. The warp stages the fragment through st (256 floats).
-__device__ __forceinline__ void store_frag(const AccFrag& f, float* st, bf16* out,
-                                           int row0, int col0, int ld,
-                                           const float* gate) {
-  const int lane = threadIdx.x % 32;
-  nvcuda::wmma::store_matrix_sync(st, f, 16, nvcuda::wmma::mem_row_major);
-  __syncwarp();
-  const int r = lane / 2, c = (lane % 2) * 8;
-  const float s = gate ? gate[row0 + r] : 1.0f;
-  __align__(16) __nv_bfloat162 v[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    v[q] = __floats2bfloat162_rn(st[r * 16 + c + 2 * q] * s, st[r * 16 + c + 2 * q + 1] * s);
-  // One int row and column, then one 64-bit offset. Written as
-  // (size_t)(row0 + r) * ld + col0 + c, the store compiled to code that made
-  // K1, K2 and K4 1.3-1.6x slower at wt103-47m-moe's training shapes
-  // (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
-  const int row = row0 + r, col = col0 + c;
-  *reinterpret_cast<uint4*>(out + (size_t)row * ld + col) = *reinterpret_cast<const uint4*>(v);
-  __syncwarp();
-}
-
-template <int BN, bool GATHER, bool GLU, bool SAVE, bool GATE>
-__global__ void __launch_bounds__(tc::THREADS)
-row_gemm_bf16(const bf16* __restrict__ a, const int* __restrict__ row_src, int n_rows,
-              const int* __restrict__ tile_expert, const bf16* __restrict__ w,
-              const bf16* __restrict__ wg, const float* __restrict__ gate,
-              bf16* __restrict__ out_u, bf16* __restrict__ out_h,
-              bf16* __restrict__ out_hg, int k_pad, int n_pad, int n_experts, int act) {
-  using namespace nvcuda;
-  using namespace tc;
-  constexpr int FM = BM / WARPS_M / 16;  // 2 fragments down
-  constexpr int FN = BN / WARPS_N / 16;  // 4 (BN 128) or 2 (BN 64) across
-  constexpr int B_LD = BN + 8;
-  constexpr int B_STAGE = BK * B_LD;
-  constexpr int NW = GLU ? 2 : 1;
-  __shared__ __align__(128) bf16 a_s[2 * A_STAGE];
-  __shared__ __align__(128) bf16 b_s[NW][2 * B_STAGE];
-  __shared__ __align__(128) float stage[THREADS / 32][16 * 16];
-  __shared__ int src_s[BM];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int e = tile_expert[blockIdx.y];
-
-  if (e < 0 || e >= n_experts) {  // never in a valid plan; write zeros
-    for (int i = tid; i < BM * BN / 8; i += THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      const size_t off = (size_t)(m0 + r) * n_pad + n0 + c;
-      *reinterpret_cast<uint4*>(out_u + off) = make_uint4(0, 0, 0, 0);
-      if (SAVE) *reinterpret_cast<uint4*>(out_h + off) = make_uint4(0, 0, 0, 0);
-      if (SAVE && GLU) *reinterpret_cast<uint4*>(out_hg + off) = make_uint4(0, 0, 0, 0);
-    }
-    return;
-  }
-  if constexpr (GATHER) {
-    for (int r = tid; r < BM; r += THREADS) src_s[r] = row_src[m0 + r];
-    __syncthreads();
-  }
-
-  const size_t w_off = (size_t)e * k_pad * n_pad + n0;
-  auto load = [&](int kt, int st) {
-    const int k0 = kt * BK;
-    bf16* as = a_s + st * A_STAGE;
-#pragma unroll
-    for (int i = 0; i < (BM * BK / 8) / THREADS; ++i) {  // 128 x 32 slice of A
-      const int c = tid + i * THREADS;
-      const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      const int src = GATHER ? src_s[r] : m0 + r;
-      if (!GATHER || valid_row(src, n_rows))
-        cp_async16(as + r * A_LD + col, a + (size_t)src * k_pad + k0 + col);
-      else  // sentinel: a zero row, never read
-        *reinterpret_cast<uint4*>(as + r * A_LD + col) = make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int q = 0; q < NW; ++q) {
-      const bf16* wb = (q == 0 ? w : wg) + w_off;
-      bf16* bs = b_s[q] + st * B_STAGE;
-#pragma unroll
-      for (int i = 0; i < (BK * BN / 8) / THREADS; ++i) {  // 32 x BN slice of w
-        const int c = tid + i * THREADS;
-        const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-        cp_async16(bs + r * B_LD + col, wb + (size_t)(k0 + r) * n_pad + col);
-      }
-    }
-  };
-
-  AccFrag acc[NW][FM][FN];
-#pragma unroll
-  for (int q = 0; q < NW; ++q)
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[q][i][j], 0.0f);
-
-  const int kt_n = k_pad / BK;
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < kt_n; ++kt) {
-    if (kt + 1 < kt_n) {
-      load(kt + 1, (kt + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* as = a_s + (kt & 1) * A_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * FM * 16 + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-      for (int q = 0; q < NW; ++q) {
-        const bf16* bs = b_s[q] + (kt & 1) * B_STAGE;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[FN];
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::load_matrix_sync(fb[j], bs + kk * B_LD + wn * FN * 16 + j * 16, B_LD);
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[q][i][j], fa[i], fb[j], acc[q][i][j]);
-      }
-    }
-    __syncthreads();  // the next iteration's loads overwrite this stage
-  }
-
-  // Epilogue: h (and hg) as they are, then u = act(h) [* hg] [* gate],
-  // each rounded to bf16 once.
-  float* st = stage[warp];
-  const float* g = GATE ? gate : nullptr;
-  const bool transform = GLU || act != kIdentity;
-#pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      const int row0 = m0 + wm * FM * 16 + i * 16;
-      const int col0 = n0 + wn * FN * 16 + j * 16;
-      if (SAVE) store_frag(acc[0][i][j], st, out_h, row0, col0, n_pad, nullptr);
-      if (SAVE && GLU) store_frag(acc[NW - 1][i][j], st, out_hg, row0, col0, n_pad, nullptr);
-      if (transform) {
-#pragma unroll
-        for (int t = 0; t < acc[0][i][j].num_elements; ++t) {
-          float u = activate(acc[0][i][j].x[t], act);
-          if (GLU) u *= acc[NW - 1][i][j].x[t];
-          acc[0][i][j].x[t] = u;
-        }
-      }
-      store_frag(acc[0][i][j], st, out_u, row0, col0, n_pad, g);
-    }
-  }
-}
 
 // ------------------------------------------------ bf16 path on Hopper
 namespace ws {
@@ -293,19 +115,21 @@ struct Shape {
 };
 }  // namespace ws
 
-template <int BN, bool GATHER, bool GLU, bool SAVE>
+template <int BN, bool GATHER, bool GLU, bool SAVE, bool GATE>
 __global__ void __launch_bounds__(ws::THREADS, 1)
 row_gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
                const __grid_constant__ CUtensorMap map_w,
                const __grid_constant__ CUtensorMap map_wg, const bf16* __restrict__ a,
                const int* __restrict__ row_src, int n_rows, const int* __restrict__ tile_expert,
-               bf16* __restrict__ out_u, bf16* __restrict__ out_h, bf16* __restrict__ out_hg,
-               int k_pad, int n_pad, int n_experts, int act, int n_items) {
+               const float* __restrict__ gate, bf16* __restrict__ out_u,
+               bf16* __restrict__ out_h, bf16* __restrict__ out_hg, int k_pad, int n_pad,
+               int n_experts, int act, int n_items) {
   using namespace hopper;
   using namespace ws;
   using S = Shape<BN, GLU, SAVE>;
   static_assert(BN == 256 || BN == 128 || BN == 64, "items 64, 128 or 256 columns wide");
   static_assert(!GLU || BN == 64, "GLU's two products take 64 columns each");
+  static_assert(!GATE || (!GATHER && !GLU && !SAVE), "the gate is K2's alone");
   constexpr int NW = S::NW, STAGES = S::STAGES, STAGE = S::STAGE;
   constexpr int NV = BN / 2;  // accumulators of one product a consumer thread holds
   extern __shared__ unsigned char smem_raw[];
@@ -341,6 +165,12 @@ row_gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       const int t = item / n_cb, n0 = item % n_cb * BN;
       const int e_next = expert_of(item + gridDim.x);
+      // GATE: this thread's two rows' gates, read while the mainloop runs
+      float g_lo = 1.0f, g_hi = 1.0f;
+      if constexpr (GATE) {
+        g_lo = gate[t * TM + wgi * 64 + row];
+        g_hi = gate[t * TM + wgi * 64 + row + 8];
+      }
       float acc[NW][NV];
 #pragma unroll
       for (int q = 0; q < NW; ++q)
@@ -378,10 +208,11 @@ row_gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
         if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
       }
       // Epilogue, while the producer fills the next item's stages: u =
-      // act(h) [* hg], h and hg rounded to bf16 once into this warpgroup's
-      // staging rows, then read back 16 bytes a thread and stored whole
-      // rows at a time. The first barrier: every thread of the warpgroup
-      // has read the previous item's staging rows.
+      // act(h) [* hg] (or, with GATE, h * gate[row]), h and hg rounded to
+      // bf16 once into this warpgroup's staging rows, then read back 16
+      // bytes a thread and stored whole rows at a time. The first barrier:
+      // every thread of the warpgroup has read the previous item's staging
+      // rows.
       named_sync(1 + wgi, 128);
       auto stage = [&](auto tag) {
         constexpr int ACT = decltype(tag)::value;
@@ -395,6 +226,11 @@ row_gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
           const float h0 = acc[0][v], h1 = acc[0][v + 1];
           if (SAVE) put(1, h0, h1);
           float u0 = activate(h0, ACT), u1 = activate(h1, ACT);
+          if (GATE) {  // accumulators v and v + 1 lie in row + 8 * (v / 2 % 2)
+            const float g = v / 2 % 2 ? g_hi : g_lo;
+            u0 *= g;
+            u1 *= g;
+          }
           if (GLU) {
             const float g0 = acc[NW - 1][v], g1 = acc[NW - 1][v + 1];
             if (SAVE) put(2, g0, g1);
@@ -404,7 +240,7 @@ row_gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
           put(0, u0, u1);
         }
       };
-      switch (GATHER ? act : kIdentity) {  // K4 has no activation
+      switch (GATHER ? act : kIdentity) {  // K2 and K4 have no activation
         case kRelu: stage(ActTag<kRelu>{}); break;
         case kGelu: stage(ActTag<kGelu>{}); break;
         case kSilu: stage(ActTag<kSilu>{}); break;
@@ -420,7 +256,10 @@ row_gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
           const int r = r0 + RS * j;
           const uint4 v = *reinterpret_cast<const uint4*>(stg + o * 2 * 64 * S::ROW +
                                                           r * S::ROW + c * 16);
-          // One int row and column, then one 64-bit offset (as store_frag).
+          // One int row and column, then one 64-bit offset. Written as one
+          // 64-bit product of the row's sum, the store compiled to code that
+          // made the row-tile GEMMs 1.3-1.6x slower at wt103-47m-moe's
+          // training shapes (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
           const int grow = t * TM + wgi * 64 + r, gcol = n0 + c * 8;
           *reinterpret_cast<uint4*>(outs[o] + (size_t)grow * n_pad + gcol) = v;
         }
@@ -491,10 +330,10 @@ row_gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-template <int BN, bool GATHER, bool GLU, bool SAVE>
+template <int BN, bool GATHER, bool GLU, bool SAVE, bool GATE>
 cudaError_t launch_wgmma_bn(int grid, const bf16* a, const int* rs, int n_rows, const int* te,
-                            const bf16* w, const bf16* wg, bf16* u, bf16* h, bf16* hg,
-                            int m_pad, int k_pad, int n_pad, int n_experts, int act,
+                            const bf16* w, const bf16* wg, const float* gate, bf16* u, bf16* h,
+                            bf16* hg, int m_pad, int k_pad, int n_pad, int n_experts, int act,
                             cudaStream_t s) {
   const long long items = (long long)(m_pad / TM) * (n_pad / BN);
   if (grid <= 0 || n_pad % BN || items > 0x7fffffff) return cudaErrorInvalidValue;
@@ -505,7 +344,7 @@ cudaError_t launch_wgmma_bn(int grid, const bf16* a, const int* rs, int n_rows, 
       !hopper::tensor_map_bf16(&map_w, w, w_rows, n_pad, ws::BK) ||
       (GLU && !hopper::tensor_map_bf16(&map_wg, wg, w_rows, n_pad, ws::BK)))
     return cudaErrorInvalidValue;
-  auto kern = row_gemm_wgmma<BN, GATHER, GLU, SAVE>;
+  auto kern = row_gemm_wgmma<BN, GATHER, GLU, SAVE, GATE>;
   static bool smem_set[64] = {};  // per device, once: the call costs host time
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -515,33 +354,35 @@ cudaError_t launch_wgmma_bn(int grid, const bf16* a, const int* rs, int n_rows, 
     if (err != cudaSuccess) return err;
     if (dev < 64) smem_set[dev] = true;
   }
-  kern<<<grid, ws::THREADS, smem, s>>>(map_a, map_w, map_wg, a, rs, n_rows, te, u, h, hg,
-                                       k_pad, n_pad, n_experts, act, static_cast<int>(items));
+  kern<<<grid, ws::THREADS, smem, s>>>(map_a, map_w, map_wg, a, rs, n_rows, te, gate, u, h,
+                                       hg, k_pad, n_pad, n_experts, act,
+                                       static_cast<int>(items));
   return cudaGetLastError();
 }
 
 // bf16 through row_gemm_wgmma with items bn columns wide on a persistent
 // grid of `grid` blocks, both from kernels/cvmm.py's row_gemm_schedule: bn
-// is 64, 128 or (without GLU and SAVE) 256; with GLU 64. The caller has
-// checked the shapes.
-template <bool GATHER, bool GLU, bool SAVE>
+// is 64, 128 or (without GLU and SAVE) 256; with GLU 64. GATE (K2) scales
+// each row by gate[row]. The caller has checked the shapes.
+template <bool GATHER, bool GLU, bool SAVE, bool GATE = false>
 cudaError_t launch_wgmma(int bn, int grid, const bf16* a, const int* rs, int n_rows,
-                         const int* te, const bf16* w, const bf16* wg, bf16* u, bf16* h,
-                         bf16* hg, int m_pad, int k_pad, int n_pad, int n_experts, int act,
-                         cudaStream_t s) {
+                         const int* te, const bf16* w, const bf16* wg, const float* gate,
+                         bf16* u, bf16* h, bf16* hg, int m_pad, int k_pad, int n_pad,
+                         int n_experts, int act, cudaStream_t s) {
   if (bn == 64)
-    return launch_wgmma_bn<64, GATHER, GLU, SAVE>(grid, a, rs, n_rows, te, w, wg, u, h, hg,
-                                                  m_pad, k_pad, n_pad, n_experts, act, s);
+    return launch_wgmma_bn<64, GATHER, GLU, SAVE, GATE>(grid, a, rs, n_rows, te, w, wg, gate,
+                                                        u, h, hg, m_pad, k_pad, n_pad,
+                                                        n_experts, act, s);
   if constexpr (!GLU) {
     if (bn == 128)
-      return launch_wgmma_bn<128, GATHER, GLU, SAVE>(grid, a, rs, n_rows, te, w, wg, u, h,
-                                                     hg, m_pad, k_pad, n_pad, n_experts, act,
-                                                     s);
+      return launch_wgmma_bn<128, GATHER, GLU, SAVE, GATE>(grid, a, rs, n_rows, te, w, wg,
+                                                           gate, u, h, hg, m_pad, k_pad, n_pad,
+                                                           n_experts, act, s);
     if constexpr (!SAVE) {
       if (bn == 256)
-        return launch_wgmma_bn<256, GATHER, GLU, SAVE>(grid, a, rs, n_rows, te, w, wg, u, h,
-                                                       hg, m_pad, k_pad, n_pad, n_experts,
-                                                       act, s);
+        return launch_wgmma_bn<256, GATHER, GLU, SAVE, GATE>(grid, a, rs, n_rows, te, w, wg,
+                                                             gate, u, h, hg, m_pad, k_pad,
+                                                             n_pad, n_experts, act, s);
     }
   }
   return cudaErrorInvalidValue;

@@ -21,6 +21,11 @@ use N) marks a slack slot, which reads as a zero row.
   ``gather_rows(x, row_src, weight)``    out[s] = x[row_src[s]] (* weight[s])
       replaces ``cvmm_gather_rows_pallas``; CUDA source ``csrc/gather_rows.cu``.
 
+In bf16, K1, K2 and K4 are one persistent ``wgmma`` walk over (row tile,
+column block) items (``csrc/row_gemm.cuh``; ``row_gemm_schedule`` sizes
+it), K3 and K5 one split over each expert's tiles (``csrc/dw_gemm.cuh``;
+``dw_split``); K6 spreads its rows over the card (``gather_rows_schedule``).
+
 Each wrapper takes its plain PyTorch version (``*_plain``) only for tensors
 on the CPU. For a CUDA tensor it launches the kernel on the current stream,
 or raises. A kernel's output has no autograd history, so on CUDA every
@@ -105,27 +110,34 @@ def _launch_status(name: str, rc: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K1 and K4's schedule in bf16 (csrc/row_gemm.cuh, row_gemm_wgmma): about
+# K1, K2 and K4's schedule in bf16 (csrc/row_gemm.cuh, row_gemm_wgmma): about
 # one persistent block per SM walks the (row tile, column block) items.
 # ---------------------------------------------------------------------------
 
-# Items are as wide as the call allows (256 columns, or 128 with save_preact,
-# 64 with GLU, whose two products take 64 each) while every SM still gets at
-# least this many; else the next narrower width, down to 64. Wide items read
-# fewer bytes from L2 per operation (serve-long's prefill chunk); narrow ones
-# spread a small grid over more SMs (serving decode's w1: 160 items of 128
-# columns for 132 SMs). scripts/row_gemm_ab.py --sweep times the widths.
+# Items are as wide as the call allows (256 columns, or 128 with save_preact
+# or a reduction shallower than ROW_GEMM_WIDE_MIN_K, 64 with GLU, whose two
+# products take 64 each) while every SM still gets at least this many; else
+# the next narrower width, down to 64. Wide items read fewer bytes from L2
+# per operation (serve-long's prefill chunk, K_pad 512 and 1,536); narrow
+# ones spread a small grid over more SMs (serving decode's w1: 160 items of
+# 128 columns for 132 SMs) and, where an item's mainloop is only two 64-deep
+# slices (training's K2, K4 dX and unfused w2 calls, K_pad 128), keep its
+# epilogue short: 128-wide items ran those 4-7 % faster than 256-wide ones
+# on an H100 (PERF.md). scripts/row_gemm_ab.py --sweep times the widths.
 ROW_GEMM_MIN_ITEMS_PER_SM = 2
+ROW_GEMM_WIDE_MIN_K = 512
 
 
-def row_gemm_schedule(m_pad: int, n_pad: int, n_sms: int, glu: bool = False,
-                      save: bool = False) -> Tuple[int, int, int]:
-    """(item width BN, items, grid) of one bf16 K1 or K4 call on a card of
-    ``n_sms`` SMs: items are (128-row tile, BN-column block) pairs, item i
-    covering tile i // (N_pad / BN) and columns BN * (i % (N_pad / BN)), and
-    the grid is min(items, n_sms) persistent blocks (csrc/row_gemm.cuh)."""
+def row_gemm_schedule(m_pad: int, k_pad: int, n_pad: int, n_sms: int,
+                      glu: bool = False, save: bool = False) -> Tuple[int, int, int]:
+    """(item width BN, items, grid) of one bf16 K1, K2 or K4 call of shape
+    (M_pad, K_pad) x (K_pad, N_pad) on a card of ``n_sms`` SMs: items are
+    (128-row tile, BN-column block) pairs, item i covering tile i // (N_pad /
+    BN) and columns BN * (i % (N_pad / BN)), and the grid is min(items,
+    n_sms) persistent blocks (csrc/row_gemm.cuh)."""
     n_tiles = m_pad // TM
-    widest = 64 if glu else 128 if save else 256
+    shallow = k_pad < ROW_GEMM_WIDE_MIN_K
+    widest = 64 if glu else 128 if save or shallow else 256
     bn = 64
     for width in (256, 128):
         if (width <= widest and n_pad % width == 0
@@ -190,7 +202,7 @@ def cvmm(x_pad: torch.Tensor, tile_expert: torch.Tensor,
     if tile_expert.dtype != torch.int32:
         raise ValueError("cvmm: tile_expert must be int32")
     out = torch.empty((m_pad, n_pad), dtype=x_pad.dtype, device=x_pad.device)
-    bn, _, grid = row_gemm_schedule(m_pad, n_pad, _sm_count(x_pad.device))
+    bn, _, grid = row_gemm_schedule(m_pad, k_pad, n_pad, _sm_count(x_pad.device))
     fn = _fn("cvmm", "repro_cvmm", [_C] * 4 + [_I] * 7 + [_C])
     rc = fn(x_pad.data_ptr(), tile_expert.data_ptr(), w.data_ptr(),
             out.data_ptr(), m_pad, k_pad, n_pad, e,
@@ -204,6 +216,28 @@ def cvmm(x_pad: torch.Tensor, tile_expert: torch.Tensor,
 # ---------------------------------------------------------------------------
 # K6: row gather with a sentinel, optionally weighted
 # ---------------------------------------------------------------------------
+
+# K6's grid (csrc/gather_rows.cu): blocks of ROWS warps, one output row
+# each, every lane moving VPL 16-byte vectors of its row's slice of 32 * VPL.
+# ROWS is the widest of 8, 4, 2 that still gives every SM a block, else 1:
+# on an H100 the decode gather (128 rows of 192 vectors in bf16) then runs
+# 192 blocks of 2 warps, the prefill chunk's (256 rows) 192 of 4.
+# scripts/row_gemm_ab.py --k6 times the choices.
+GATHER_ROWS_VPL = 2
+
+
+def gather_rows_schedule(m_pad: int, row_bytes: int, n_sms: int) -> Tuple[int, int]:
+    """(rows a block, 16-byte vectors a lane) of one K6 call on a card of
+    ``n_sms`` SMs; the grid is (M_pad / rows, ceil(vectors a row / (32 *
+    vectors a lane)))."""
+    nvec = row_bytes // 16
+    vpl = GATHER_ROWS_VPL if nvec > 32 else 1    # a short row: one pass a lane
+    slices = -(-nvec // (32 * vpl))
+    for rows in (8, 4, 2):
+        if m_pad // rows * slices >= n_sms:
+            return rows, vpl
+    return 1, vpl
+
 
 def gather_rows_plain(x: torch.Tensor, row_src: torch.Tensor,
                       weight: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -240,11 +274,12 @@ def gather_rows(x: torch.Tensor, row_src: torch.Tensor,
     if row_src.dtype != torch.int32:
         raise ValueError("gather_rows: row_src must be int32")
     out = torch.empty((m_pad, k_pad), dtype=x.dtype, device=x.device)
-    fn = _fn("gather_rows", "repro_gather_rows",
-             [_C, _C, _C, _C, _I, _I, _I, _I, _C])
+    rows, vpl = gather_rows_schedule(m_pad, k_pad * x.element_size(),
+                                     _sm_count(x.device))
+    fn = _fn("gather_rows", "repro_gather_rows", [_C] * 4 + [_I] * 6 + [_C])
     rc = fn(x.data_ptr(), row_src.data_ptr(),
             None if weight is None else weight.data_ptr(), out.data_ptr(),
-            n_rows, m_pad, k_pad, _DTYPE_CODE[x.dtype],
+            n_rows, m_pad, k_pad, _DTYPE_CODE[x.dtype], rows, vpl,
             torch.cuda.current_stream(x.device).cuda_stream)
     _launch_status("gather_rows", rc)
     LAUNCHES["gather_rows"] += 1
@@ -312,7 +347,7 @@ def fused_w1(x: torch.Tensor, row_src: torch.Tensor, tile_expert: torch.Tensor,
     outs = [torch.empty((m_pad, g_pad), dtype=x.dtype, device=x.device)
             for _ in range(n_out)]
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - n_out)
-    bn, _, grid = row_gemm_schedule(m_pad, g_pad, _sm_count(x.device),
+    bn, _, grid = row_gemm_schedule(m_pad, k_pad, g_pad, _sm_count(x.device),
                                     glu=w1g is not None, save=save_preact)
     fn = _fn("fused_w1", "repro_fused_w1",
              [_C] * 8 + [_I] * 9 + [_C])
@@ -361,10 +396,11 @@ def fused_w2(u_pad: torch.Tensor, tile_expert: torch.Tensor, w2: torch.Tensor,
     if tile_expert.dtype != torch.int32:
         raise ValueError("fused_w2: tile_expert must be int32")
     out = torch.empty((m_pad, n_pad), dtype=u_pad.dtype, device=u_pad.device)
-    fn = _fn("fused_w2", "repro_fused_w2", [_C] * 5 + [_I] * 5 + [_C])
+    bn, _, grid = row_gemm_schedule(m_pad, g_pad, n_pad, _sm_count(u_pad.device))
+    fn = _fn("fused_w2", "repro_fused_w2", [_C] * 5 + [_I] * 7 + [_C])
     rc = fn(u_pad.data_ptr(), tile_expert.data_ptr(), w2.data_ptr(),
             gate.data_ptr(), out.data_ptr(), m_pad, g_pad, n_pad, e,
-            _DTYPE_CODE[u_pad.dtype],
+            _DTYPE_CODE[u_pad.dtype], bn, grid,
             torch.cuda.current_stream(u_pad.device).cuda_stream)
     _launch_status("fused_w2", rc)
     LAUNCHES["fused_w2"] += 1

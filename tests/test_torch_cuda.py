@@ -187,8 +187,8 @@ def test_cvmm_row_walk_matches_plain(cuda, layout, dtype):
 
 def test_row_gemm_schedule_covers_both_sides_of_the_sm_count(cuda):
     sms = K._sm_count(cuda)
-    grids = {name: K.row_gemm_schedule(len(t) * 128, n, sms)[2]
-             for name, (t, _, n) in K4_LAYOUTS.items()}
+    grids = {name: K.row_gemm_schedule(len(t) * 128, k, n, sms)[2]
+             for name, (t, k, n) in K4_LAYOUTS.items()}
     assert grids["decode_e4_small_grid"] < sms <= grids["training_dx_kpad128"]
 
 
@@ -262,6 +262,81 @@ def test_cvmm_bf16_check_rejects_a_ring_fault(cuda, fault):
     bad[:, 768:832] *= 0 if fault == "slice dropped" else 2      # the middle stage
     assert _bf16_norm_close(K.cvmm(x, te, w), K.cvmm_plain(x, te, w))
     assert not _bf16_norm_close(K.cvmm(bad, te, w), K.cvmm_plain(x, te, w))
+
+
+# K2 on the persistent row-tile walk with the gate as a compile-time flag:
+# K1's shapes at K2's widths (expert size -> d_model), the first tile's
+# expert out of range (zeros), slack rows (gate 0) zero.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_fused_w2_row_walk_matches_plain(cuda, dtype, shape):
+    n, k, e, d, g = K1_SHAPES[shape]
+    idx, gates, _, _, _, w2 = _fused_case(cuda, n=n, k=k, e=e, d=d, g=g, seed=16)
+    plan = ops.make_moe_plan(idx, e, gates)
+    te = plan.tile_expert.clone()
+    te[0] = e
+    w2p = ops._pad_w(w2).to(dtype)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    u = torch.randn((plan.m_pad, w2p.shape[1]), generator=gen, device=cuda).to(dtype)
+    gate = plan.gate_tiles.reshape(-1)
+    zero_rows, te_plain = _out_of_range(te, e)
+    before = K.LAUNCHES["fused_w2"]
+    got, again = K.fused_w2(u, te, w2p, gate), K.fused_w2(u, te, w2p, gate)
+    want = K.fused_w2_plain(u, te_plain, w2p, gate)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_w2"] == before + 2
+    want[zero_rows] = 0
+    _row_gemm_check((got,), (want,), (again,), dtype, zero_rows | (plan.row_src >= n))
+
+
+def test_fused_w2_bf16_check_rejects_exchanged_gate_rows(cuda):
+    """The bf16 check (allclose 3e-2 and 1e-2 normwise) sees a K2 whose
+    epilogue applies row r + 8's gate to row r and r's to r + 8 in every
+    16-row group: the kernel on gates exchanged so is exactly such a K2."""
+    idx, gates, _, _, _, w2 = _fused_case(cuda)
+    plan = ops.make_moe_plan(idx, w2.shape[0], gates)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    u = torch.randn((plan.m_pad, 128), generator=g, device=cuda).bfloat16()
+    w2p, te = ops._pad_w(w2).bfloat16(), plan.tile_expert
+    gate = plan.gate_tiles.reshape(-1)
+    exchanged = gate.reshape(-1, 2, 8).flip(1).reshape(-1)
+    want = K.fused_w2_plain(u, te, w2p, gate)
+    assert _bf16_norm_close(K.fused_w2(u, te, w2p, gate), want)
+    assert not _bf16_norm_close(K.fused_w2(u, te, w2p, exchanged), want)
+
+
+# K6 split over the card (csrc/gather_rows.cu): (rows of x, K_pad, slots) of
+# an unsorted row_src that mixes both kinds of sentinel (-1 and N + 5) over
+# several row groups, granite-moe's decode gather (8 tokens) and serve-long's
+# prefill chunk (256), and one 16-byte vector a row (K_pad 8 in bf16), where
+# one lane of a warp covers the row.
+K6_CASES = {
+    "unsorted_sentinels": (200, 640, 512),
+    "decode_n8_d1536": (8, 1536, 128),
+    "prefill_chunk_n256_d1536": (256, 1536, 256),
+    "one_vector_a_row": (50, 8, 384),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", K6_CASES)
+def test_gather_rows_split_matches_plain(cuda, case, weighted, dtype):
+    n, k_pad, m_pad = K6_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn((n, k_pad), generator=g, device=cuda).to(dtype)
+    if case.startswith(("decode", "prefill")):
+        rs = ops.make_decode_plan(n, 8, 40, device=cuda).gather.row_src
+    else:
+        rs = torch.randint(0, n, (m_pad,), generator=g, device=cuda, dtype=torch.int32)
+        rs[1::5], rs[3::7] = -1, n + 5
+    assert rs.shape == (m_pad,)
+    wt = torch.rand((m_pad,), generator=g, device=cuda) if weighted else None
+    before = K.LAUNCHES["gather_rows"]
+    got = K.gather_rows(x, rs, wt)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gather_rows"] == before + 1
+    assert torch.equal(got, K.gather_rows_plain(x, rs, wt))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
