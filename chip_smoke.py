@@ -74,23 +74,27 @@ the unfused rung, 15-18 K7 and the long-prompt serving run:
 15. K7 against its plain version on the card, in bf16 and float32: the
     reference oracle's five cases, granite-moe's heads at 256-row chunks
     (offsets 0, 256, 1,280 and serve-long's last two) against a 4,096-key
-    pool, two batch rows with different ``kv_len``, and head size 16; the
-    bf16 gate must also reject a K7 whose softmax scale is 10 % off and one
-    that reads three keys past ``kv_len``;
+    pool, two batch rows with different ``kv_len``, and head size 16, each
+    the same bits on a second call; the bf16 gate must also reject a K7
+    whose softmax scale is 10 % off, one that reads three keys past
+    ``kv_len``, and split merges that drop the 64 keys at a split boundary
+    or count them twice (emulated through the inputs);
 16. serve-long: the Engine serving LongBench's multi-document QA as a
     4k-context model sees it (prompts at its 3,500-token cut, 32 new tokens
     each, prefill chunks of 256) on granite-moe at full width and depth;
     exact K7, K4 and K6 counts, wall time, tok/s, peak memory, and one
-    profiled prefill chunk;
+    profiled prefill chunk (one K7 device kernel per wrapper call);
 17. end to end, K7 against its plain version: a depth-2 bf16 paged prefill
     of a 600-token prompt in three chunks (which must also reject a K7 with
     its softmax scale 10 % off), and a float32 full-depth prefill of a
     1,024-token prompt in four, with the expert choices pinned;
-18. K7 timed at serve-long's last full prefill chunk beside its bound, its
+18. K7 timed at serve-long's last full prefill chunk and at serve's short
+    chunk beside its bound (bytes, tensor products or exponentials), its
     plain version and ``scaled_dot_product_attention`` with K/V cut to
     ``kv_len`` and a lower-right causal mask (the backend it took named),
     by CUDA events around back-to-back calls and around calls queued
-    while the device sleeps (the device's time alone);
+    while the device sleeps (the device's time alone), with the bf16
+    kernel's schedule and ptxas' registers, spills and shared memory;
 19. one ``{"kernels": [...]}`` JSON line, then the device line last.
 
 With ``--out``, the full results (every phase's numbers and the ptxas
@@ -113,6 +117,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no TF32
+EXP_PER_S = 132 * 16 * 1.83e9
+# exp2 results a second on an H100 SXM: 16 a clock on each of 132 SMs (the
+# CUDA programming guide's throughput table, compute capability 9.0) at the
+# 1.83 GHz that 989 TFLOP/s implies (4,096 bf16 operations an SM a clock).
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 # float32: the kernel and cuBLAS sum K = 512..1536 products in different
 # orders; bf16: one bf16 ulp of the rounded result, the reference's serving
@@ -945,23 +953,61 @@ def _long_prompt_slice(seed, dev, gen, K, K7, results):
             got, want = K7.flash_attention(q, k, v, **kw), K7.flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
             ok, err, rel, lim = close(got, want, K7_TOL[dn], dn)
+            same = same_bits(got, K7.flash_attention(q, k, v, **kw))
             print(f"[15] flash_attention {label}: B {b} Sq {sq} Sk {sk} heads {h}/{kv} "
                   f"D {d} causal {causal} q_offset {off} kv_len {kl} {dn}: max_abs_err "
-                  f"{err:.3g}, normwise {rel:.3g} ({lim}) {'ok' if ok else 'BAD'}")
+                  f"{err:.3g}, normwise {rel:.3g} ({lim}), same bits twice {same} "
+                  f"{'ok' if ok and same else 'BAD'}")
             if not ok:
                 fail(f"flash_attention disagrees with its plain version ({label}, {dn})")
-            errs[(label, dn)] = {"max_abs_err": err, "limit": lim, "normwise": rel}
-    # The bf16 gate must reject a subtly wrong K7: a softmax scale 10 % off, or
+            if not same:
+                fail(f"flash_attention gave other bits on a second call ({label}, {dn})")
+            errs[(label, dn)] = {"max_abs_err": err, "limit": lim, "normwise": rel,
+                                 "same_bits_twice": same}
+    # The bf16 gate must reject a subtly wrong K7: a softmax scale 10 % off,
     # three keys read past kv_len (only the B 2 case's first row has keys
-    # there that the causal mask lets through).
-    for label, fault, b, off, kl in ((f"granite chunk at {last}", "scale x 1.1", 1, last,
-                                      (last + chunk,)),
-                                     ("granite B 2", "kv_len + 3", 2, 512, (300, 768))):
+    # there that the causal mask lets through), or a split merge that drops
+    # the 64 keys at the second split's first key of serve-long's chunk or
+    # counts them twice, emulated through the inputs: those keys removed
+    # (or repeated in place) with kv_len and q_offset moved by 64, so the
+    # causal mask is unchanged.
+    bk = K7.FLASH_BK[Dh]
+    _, _, splits, _ = K7.flash_schedule(1, chunk, H, KV, pool, last, True, K._sm_count(dev), bk)
+    n_rt = -(-chunk * (H // KV) // K7.ROW_TILE)
+    ranges = K7.flash_split_ranges(
+        K7.flash_item_tiles(n_rt - 1, chunk, pool, H // KV, True, last, bk), splits)
+    if len(ranges) < 2:
+        fail(f"serve-long's chunk takes one split ({splits}): no boundary to fault")
+    bound_key = ranges[1][0] * bk
+
+    def tile_fault(k, v, kw, twice):
+        if twice:
+            k, v = (torch.cat([t[:, :bound_key + 64], t[:, bound_key:]], 1)[:, :pool]
+                    for t in (k, v))
+        else:
+            k, v = (torch.cat([t[:, :bound_key], t[:, bound_key + 64:], t[:, :64]], 1)
+                    for t in (k, v))
+        shift = 64 if twice else -64
+        return (k.contiguous(), v.contiguous(),
+                dict(kw, q_offset=kw["q_offset"] + shift, kv_len=kw["kv_len"] + shift))
+
+    for label, fault, b, off, kl in (
+            (f"granite chunk at {last}", "scale x 1.1", 1, last, (last + chunk,)),
+            ("granite B 2", "kv_len + 3", 2, 512, (300, 768)),
+            (f"granite chunk at {last}", f"keys {bound_key}-{bound_key + 63} dropped", 1,
+             last, (last + chunk,)),
+            (f"granite chunk at {last}", f"keys {bound_key}-{bound_key + 63} twice", 1,
+             last, (last + chunk,))):
         q, k, v = qkv(b, chunk, pool, H, KV, Dh, torch.bfloat16)
         kw = k7_args(True, Dh, off, kl)
-        bad = (dict(kw, scale=kw["scale"] * 1.1) if fault.startswith("scale")
-               else dict(kw, kv_len=kw["kv_len"] + 3))
-        ok, err, rel, lim = close(K7.flash_attention(q, k, v, **bad),
+        kb, vb, bad = k, v, kw
+        if fault.startswith("scale"):
+            bad = dict(kw, scale=kw["scale"] * 1.1)
+        elif fault.startswith("kv_len"):
+            bad = dict(kw, kv_len=kw["kv_len"] + 3)
+        else:
+            kb, vb, bad = tile_fault(k, v, kw, fault.endswith("twice"))
+        ok, err, rel, lim = close(K7.flash_attention(q, kb, vb, **bad),
                                   K7.flash_attention_plain(q, k, v, **kw),
                                   K7_TOL["bfloat16"], "bfloat16")
         print(f"[15] faulty K7 ({fault}) at {label} bfloat16: max_abs_err {err:.3g}, "
@@ -1021,7 +1067,8 @@ def _long_prompt_slice(seed, dev, gen, K, K7, results):
         "prompt_lens": lens, "requests": len(outs), "tokens": n_tok, "wall_s": wall,
         "tok_per_s": n_tok / wall, "prompt_and_generated_per_s": (n_prompt + n_tok) / wall,
         "max_memory_allocated": peak, "stats": stats, "launches": launches,
-        "prefill_chunk": _profile_prefill_chunk(lm, params, dev, last, chunk, pool, ps, rng)}
+        "prefill_chunk": _profile_prefill_chunk(lm, params, dev, last, chunk, pool, ps, rng,
+                                                K)}
     del params, eng
     torch.cuda.empty_cache()
 
@@ -1103,61 +1150,107 @@ def _long_prompt_slice(seed, dev, gen, K, K7, results):
     del p32
     torch.cuda.empty_cache()
 
-    # ------------------------------------- 18. K7 at serve-long's last full chunk
-    q, k, v = qkv(1, chunk, pool, H, KV, Dh, torch.bfloat16)
-    kvl = last + chunk
-    kw = k7_args(True, Dh, last, (kvl,))
-    # The library yardstick on a call its fused backends take: K/V cut to
-    # kv_len, where the mask is exactly causal aligned to the lower right.
+    # ------------------- 18. K7 at serve-long's last full chunk and serve's short one
     from torch.backends.cuda import (SDPAParams, can_use_efficient_attention,
                                      can_use_flash_attention)
     from torch.nn.attention.bias import causal_lower_right
-    qt, kt, vt = q.transpose(1, 2), k[:, :kvl].transpose(1, 2), v[:, :kvl].transpose(1, 2)
-    gqa = can_use_flash_attention(SDPAParams(qt, kt, vt, None, 0.0, False, True))
-    if not gqa:                   # expand the KV heads here, outside the timing
-        kt, vt = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
-    sdpa_params = SDPAParams(qt, kt, vt, None, 0.0, False, gqa)
-    backend = ("flash" if can_use_flash_attention(sdpa_params) else "efficient"
-               if can_use_efficient_attention(sdpa_params) else "math")
-    bias = causal_lower_right(chunk, kvl)
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias, scale=Dh ** -0.5,
-                                              enable_gqa=gqa)
+    def time_k7(sq, sk, off, kvl):
+        """K7 on one causal chunk of ``sq`` rows at ``off`` over kv_len ``kvl``
+        of an ``sk``-key pool beside its plain version, the library call on
+        K/V cut to kv_len with a lower-right causal mask (the mask is then
+        exactly K7's), and the bound."""
+        q, k, v = qkv(1, sq, sk, H, KV, Dh, torch.bfloat16)
+        kw = k7_args(True, Dh, off, (kvl,))
+        qt, kt, vt = q.transpose(1, 2), k[:, :kvl].transpose(1, 2), v[:, :kvl].transpose(1, 2)
+        gqa = can_use_flash_attention(SDPAParams(qt, kt, vt, None, 0.0, False, True))
+        if not gqa:               # expand the KV heads here, outside the timing
+            kt, vt = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
+        sdpa_params = SDPAParams(qt, kt, vt, None, 0.0, False, gqa)
+        backend = ("flash" if can_use_flash_attention(sdpa_params) else "efficient"
+                   if can_use_efficient_attention(sdpa_params) else "math")
+        bias = causal_lower_right(sq, kvl)
 
-    lib_err = (sdpa().transpose(1, 2).float() - K7.flash_attention(q, k, v, **kw).float()
-               ).abs().max().item()
-    pairs = sum(min(kvl, last + i + 1) for i in range(chunk))      # visible (row, key) pairs
-    flops = 4 * Dh * H * pairs                                      # Q K^T and P V
-    nbytes = (2 * q.numel() + 2 * kvl * KV * Dh) * q.element_size() + 8
-    bound_b, bound_f = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
-    shape = (f"B 1 Sq {chunk} at q_offset {last}, kv_len {kvl} of {pool} keys, heads "
-             f"{H}/{KV}, D {Dh}")
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias,
+                                                  scale=Dh ** -0.5, enable_gqa=gqa)
+
+        got = K7.flash_attention(q, k, v, **kw).float()
+        err = (got - K7.flash_attention_plain(q, k, v, **kw).float()).abs().max().item()
+        lib_err = (sdpa().transpose(1, 2).float() - got).abs().max().item()
+        if lib_err > K7_TOL["bfloat16"]:
+            fail("scaled_dot_product_attention does not compute K7's function here")
+        pairs = sum(min(kvl, off + i + 1) for i in range(sq))      # visible (row, key) pairs
+        flops, exps = 4 * Dh * H * pairs, H * pairs                 # Q K^T and P V; exp2
+        nbytes = (2 * q.numel() + 2 * kvl * KV * Dh) * q.element_size() + 8
+        bounds = {"bytes": nbytes / HBM_BYTES_PER_S, "products": flops / PEAK_FLOPS["bfloat16"],
+                  "exponentials": exps / EXP_PER_S}
+        worst = max(bounds, key=bounds.get)
+        _, items, splits, grid = K7.flash_schedule(1, sq, H, KV, sk, off, True,
+                                                   K._sm_count(dev), K7.FLASH_BK[Dh])
+        return {"shape": (f"B 1 Sq {sq} at q_offset {off}, kv_len {kvl} of {sk} keys, heads "
+                          f"{H}/{KV}, D {Dh}"),
+                "ms": _time_ms(lambda: K7.flash_attention(q, k, v, **kw)),
+                "plain_ms": _time_ms(lambda: K7.flash_attention_plain(q, k, v, **kw)),
+                "library_ms": _time_ms(sdpa),
+                "device_ms": _device_ms(lambda: K7.flash_attention(q, k, v, **kw)),
+                "library_device_ms": _device_ms(sdpa),
+                "bound_ms": 1e3 * bounds[worst],
+                "bound_by": "bytes" if worst == "bytes" else "operations",
+                "bound_operations": None if worst == "bytes" else worst,
+                "bounds_ms": {n: 1e3 * x for n, x in bounds.items()},
+                "max_abs_err": err, "library_vs_kernel_err": lib_err, "bytes": nbytes,
+                "flops": flops, "exps": exps, "library_backend": backend,
+                "library_enable_gqa": gqa,
+                "schedule": {"bk": K7.FLASH_BK[Dh], "items": items, "splits": splits,
+                             "grid": grid}}
+
+    timed = {"serve-long": time_k7(chunk, pool, last, last + chunk),
+             "serve": time_k7(32, 128, 64, 96)}      # serve's Engine: chunks of 32, max_len 128
+    for label, t in timed.items():
+        sch = t["schedule"]
+        print(f"[18] flash_attention at {label}'s chunk, {t['shape']} bfloat16: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, scaled_dot_product_attention "
+              f"{t['library_ms']:.4f} ms ({t['library_backend']} backend, enable_gqa "
+              f"{t['library_enable_gqa']}, K/V cut to kv_len, causal_lower_right; vs K7 "
+              f"max_abs_err {t['library_vs_kernel_err']:.3g}); bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_operations'] or 'bytes'}; bytes {t['bounds_ms']['bytes']:.4f}, "
+              f"products {t['bounds_ms']['products']:.4f}, exponentials "
+              f"{t['bounds_ms']['exponentials']:.4f}: {t['bytes'] / 1e6:.2f} MB, "
+              f"{t['flops'] / 1e9:.3f} GFLOP, {t['exps'] / 1e6:.2f} M exp2); device time "
+              f"alone (calls queued behind a sleep): kernel {t['device_ms']:.4f} ms, "
+              f"scaled_dot_product_attention {t['library_device_ms']:.4f} ms; schedule BK "
+              f"{sch['bk']}, {sch['items']} items x {sch['splits']} splits = {sch['grid']} "
+              f"blocks")
+    # ptxas on the bf16 body at this head size and key tile (dynamic shared
+    # memory: csrc/flash_attention.cu's ws::Shape, Q + a ring of at most 4
+    # stages + 1,024 for alignment).
+    bk = K7.FLASH_BK[Dh]
+    dp = max(Dh, 64)
+    stages = min(4, (232448 - 1024 - 128 * dp * 2) // (4 * bk * dp))
+    lines = results["build"]["flash_attention"]["ptxas"].splitlines()
+    entry = f"flash_fwd_bf16ILi{Dh}ELi{bk}E"
+    report = [x.split("ptxas info    : ")[-1].strip()
+              for i, ln in enumerate(lines) if "Compiling entry" in ln and entry in ln
+              for x in lines[i + 1:i + 4] if "Function properties" not in x]
+    print(f"[18] ptxas flash_fwd_bf16<{Dh}, {bk}>: {'; '.join(report)}; dynamic shared "
+          f"memory {128 * dp * 2 + stages * 4 * bk * dp + 1024} bytes ({stages} stages)")
+    long_t = timed["serve-long"]
     row = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:65",
            "launches": launches["flash_attention"],
            "max_abs_err": errs[(f"granite chunk at {last}", "bfloat16")]["max_abs_err"],
-           "ms": _time_ms(lambda: K7.flash_attention(q, k, v, **kw)),
-           "plain_ms": _time_ms(lambda: K7.flash_attention_plain(q, k, v, **kw)),
-           "bound_ms": 1e3 * max(bound_b, bound_f),
-           "bound_by": "bytes" if bound_b >= bound_f else "operations",
-           "library_ms": _time_ms(sdpa), "shape": shape, "dtype": "bfloat16",
-           "path": "serving, serve-long prefill",
-           "device_ms": _device_ms(lambda: K7.flash_attention(q, k, v, **kw)),
-           "library_device_ms": _device_ms(sdpa)}
-    print(f"[18] flash_attention {shape} bfloat16: kernel {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, scaled_dot_product_attention {row['library_ms']:.4f} ms "
-          f"({backend} backend, enable_gqa {gqa}, K/V cut to kv_len, causal_lower_right; "
-          f"vs K7 max_abs_err {lib_err:.3g}), bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); device "
-          f"time alone (calls queued behind a sleep): kernel {row['device_ms']:.4f} ms, "
-          f"scaled_dot_product_attention {row['library_device_ms']:.4f} ms")
-    if lib_err > K7_TOL["bfloat16"]:
-        fail("scaled_dot_product_attention does not compute K7's function here")
-    results["k7_timing"] = row | {"library_vs_kernel_err": lib_err, "bytes": nbytes,
-                                  "flops": flops, "library_backend": backend,
-                                  "library_enable_gqa": gqa}
+           "ms": long_t["ms"], "plain_ms": long_t["plain_ms"], "bound_ms": long_t["bound_ms"],
+           "bound_by": long_t["bound_by"], "library_ms": long_t["library_ms"],
+           "bound_operations": long_t["bound_operations"], "shape": long_t["shape"],
+           "dtype": "bfloat16", "path": "serving, serve-long prefill",
+           "device_ms": long_t["device_ms"], "library_device_ms": long_t["library_device_ms"],
+           "schedule": long_t["schedule"], "ptxas": report,
+           "short_chunk": {key: timed["serve"][key] for key in (
+               "shape", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+               "bound_ms", "bound_by", "max_abs_err", "schedule")}}
+    results["k7_timing"] = timed
     return row
 
 
@@ -1173,10 +1266,11 @@ def _decode_plans(max_tokens: int):
         dispatch.set_decode_provider(None)
 
 
-def _profile_prefill_chunk(lm, params, dev, start, chunk, pool, ps, rng):
+def _profile_prefill_chunk(lm, params, dev, start, chunk, pool, ps, rng, K):
     """One full-width paged prefill chunk of ``chunk`` random tokens at
     ``start`` (mean of 3, host clock around synchronized calls), then one
-    under torch.profiler (``_profile``)."""
+    under torch.profiler (``_profile``), which must show one K7 device
+    kernel per K7 wrapper call."""
     import torch
 
     n_pages = pool // ps
@@ -1192,7 +1286,15 @@ def _profile_prefill_chunk(lm, params, dev, start, chunk, pool, ps, rng):
     with _decode_plans(chunk):
         chunk_ms = _mean_ms(run, 3)
         print(f"[16] prefill chunk of {chunk} at {start}: {chunk_ms:.2f} ms (mean of 3)")
-        return {"start": start, "chunk_ms": chunk_ms} | _profile("16", "prefill chunk", run)
+        calls = K.LAUNCHES["flash_attention"]
+        prof = _profile("16", "prefill chunk", run)
+        calls = K.LAUNCHES["flash_attention"] - calls
+    kernels = prof["port_kernels"].get("K7 flash_attention", (0, 0.0))[0]
+    print(f"[16] K7 in the profiled chunk: {calls} wrapper calls, {kernels} device kernels")
+    if kernels != calls or calls != lm.cfg.n_layers:
+        fail(f"profiled prefill chunk: {calls} K7 calls, {kernels} K7 device kernels, "
+             f"{lm.cfg.n_layers} layers")
+    return {"start": start, "chunk_ms": chunk_ms} | prof
 
 
 def _train_main_path(tag, argv, want, K, train_cli, label=""):
@@ -1467,7 +1569,7 @@ def _port_kernel(symbol):
     GATE> (csrc/row_gemm.cuh): K2 has the gate, K1 gathers, K4 does neither.
     K3 and K5 are instances of dw_bf16<OPERANDS, GATE> (csrc/dw_gemm.cuh):
     K5 gathers neither operand (OPERANDS 0). K6 is gather_rows_kernel, K7
-    flash_fwd_bf16<D>."""
+    flash_fwd_bf16<D, BK>."""
     if "gather_rows_kernel" in symbol:
         return "K6 gather_rows"
     if "flash_fwd_bf16<" in symbol:

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time K1 (``fused_w1``), K2 (``fused_w2``), K4 (``cvmm``) and K6
-(``gather_rows``) in bf16 on one CUDA card at the main paths' shapes, device
-alone, beside one PyTorch call for the same function and the bound.
+(``gather_rows``), or with ``--k7`` K7 (``flash_attention``) alone, in bf16
+on one CUDA card at the main paths' shapes, device alone, beside one
+PyTorch call for the same function and the bound.
 
-    python3 scripts/row_gemm_ab.py [--src DIR] [--tag NAME] [--sweep] [--k6] [--seed 0]
+    python3 scripts/row_gemm_ab.py [--src DIR] [--tag NAME] [--sweep] [--k6] [--k7] [--seed 0]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (default
 this checkout's), so that one call can time two trees in turns: unpack the
@@ -14,7 +15,16 @@ checkout's kernels only) also times every GEMM case with its items forced
 to 256, 128 and 64 columns where the call allows that width (``kernels.cvmm.
 row_gemm_schedule`` replaced for the run); ``--k6`` (this checkout's only)
 times every K6 case with each of 1, 2, 4 and 8 rows a block and 1, 2 and 4
-vectors a lane (``kernels.cvmm.gather_rows_schedule`` replaced).
+vectors a lane (``kernels.cvmm.gather_rows_schedule`` replaced). ``--k7``
+times K7 at serve-long's last full prefill chunk (256 rows at q_offset
+3,072 over kv_len 3,328 of a 4,096-key pool) and at serve's short chunk (32
+rows at q_offset 64 over kv_len 96 of 128), granite-moe's 24/8 heads of 64,
+beside ``scaled_dot_product_attention`` on K/V cut to kv_len with a
+lower-right causal mask and the bound (bytes, tensor operations and
+exponentials at the special-function units' rate); with ``--sweep`` (this
+checkout's only) also with the key tile forced to 64 and 128 keys and the
+splits to 1, 2, 3, 4 and 6 (``kernels.flash_attention.flash_schedule``
+replaced).
 
 Shapes: serve-long's prefill chunk (M_pad 81,920 = 40 experts x 2,048 rows,
 1,536 -> 512 and 512 -> 1,536, x_pad holding the chunk's 2,048 routed rows
@@ -42,6 +52,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 HBM_BYTES_PER_S, PEAK_BF16 = 3.35e12, 989e12   # H100 SXM data sheet, 700 W
+# exp2 results a second: 16 a clock on each of 132 SMs (the CUDA
+# programming guide's throughput table, compute capability 9.0) at the
+# 1.83 GHz that 989 TFLOP/s implies (4,096 bf16 operations an SM a clock).
+EXP_PER_S = 132 * 16 * 1.83e9
 
 
 def main() -> None:
@@ -50,6 +64,7 @@ def main() -> None:
     ap.add_argument("--tag", default="this tree")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--k6", action="store_true")
+    ap.add_argument("--k7", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -69,6 +84,9 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     bf = torch.bfloat16
+    if args.k7:
+        k7_main(args, card, dev, gen)
+        return
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
@@ -237,6 +255,93 @@ def main() -> None:
               f"bound {bound:.4f} ({nbytes / 1e6:.2f} MB, {nflops / 1e9:.2f} GFLOP); "
               f"host {row['host_ms']:.4f} ms a call",
               flush=True)
+    print(json.dumps(out))
+
+
+def k7_main(args, card, dev, gen) -> None:
+    """``--k7``: K7 at serve-long's and serve's prefill chunks."""
+    import torch
+    import torch.nn.functional as F
+    from torch.backends.cuda import SDPAParams, can_use_flash_attention
+    from torch.nn.attention.bias import causal_lower_right
+    from chip_smoke import _device_ms, bf16_ulp
+    from repro_torch.kernels import flash_attention as K7
+
+    H, KV, D = 24, 8, 64
+    default = getattr(K7, "flash_schedule", None)
+    choices = {"default": None}
+    if args.sweep and default is not None:
+        for bk in (64, 128):
+            for splits in (1, 2, 3, 4, 6):
+                choices[f"bk {bk} splits {splits}"] = (bk, splits)
+    out = {"card": card, "tag": args.tag, "cases": []}
+    for label, sq, pool, q_offset, kvl in (("serve-long chunk", 256, 4096, 3072, 3328),
+                                           ("serve chunk", 32, 128, 64, 96)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                   for shape in ((1, sq, H, D), (1, pool, KV, D), (1, pool, KV, D)))
+        kw = dict(causal=True, scale=D ** -0.5, q_offset=q_offset,
+                  kv_len=torch.tensor([kvl], device=dev))
+        qt, kt, vt = q.transpose(1, 2), k[:, :kvl].transpose(1, 2), v[:, :kvl].transpose(1, 2)
+        gqa = can_use_flash_attention(SDPAParams(qt, kt, vt, None, 0.0, False, True))
+        if not gqa:
+            kt, vt = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
+        bias = causal_lower_right(sq, kvl)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias, scale=D ** -0.5,
+                                                  enable_gqa=gqa)
+
+        def kernel():
+            return K7.flash_attention(q, k, v, **kw)
+
+        want = K7.flash_attention_plain(q, k, v, **kw).float()
+        pairs = sum(min(kvl, q_offset + i + 1) for i in range(sq))
+        nbytes = (2 * q.numel() + 2 * kvl * KV * D) * 2 + 8
+        flops, exps = 4 * D * H * pairs, H * pairs
+        bounds = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / PEAK_BF16,
+                  "exponentials": exps / EXP_PER_S}
+        bound_by = max(bounds, key=bounds.get)
+        row = {"case": f"K7 {label}: Sq {sq} at q_offset {q_offset}, kv_len {kvl} of {pool}",
+               "bound_ms": 1e3 * bounds[bound_by], "bound_by": bound_by,
+               "bounds_ms": {n: 1e3 * b for n, b in bounds.items()}, "bytes": nbytes,
+               "flops": flops, "exps": exps, "library_device_ms": _device_ms(sdpa),
+               "library_flash_gqa": gqa}
+        for name, forced in choices.items():
+            saved = dict(getattr(K7, "FLASH_BK", {}))
+            try:
+                if forced is not None:
+                    bk, splits = forced
+                    K7.FLASH_BK[D] = bk
+
+                    def schedule(b, sq_, h, kvh, sk, off, causal, n_sms, bk_=bk, s_=splits):
+                        _, items, _, _ = default(b, sq_, h, kvh, sk, off, causal, n_sms, bk_)
+                        return K7.ROW_TILE, items, s_, items * s_
+
+                    K7.flash_schedule = schedule
+                got = kernel().float()
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                rel = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+                if (err > 4 * bf16_ulp(want.abs().max().item()) or rel > 1e-2
+                        or not torch.equal(kernel(), kernel())):
+                    sys.exit(f"FAIL: K7 {label} ({name}) disagrees with its plain version "
+                             f"(max_abs_err {err:.3g}, normwise {rel:.3g}) or between calls")
+                row[name] = _device_ms(kernel, iters=200)
+            finally:
+                if default is not None:
+                    K7.flash_schedule = default
+                    K7.FLASH_BK.update(saved)
+        if default is not None:
+            row["schedule"] = default(1, sq, H, KV, pool, q_offset, True, 132,
+                                      K7.FLASH_BK[D])
+        out["cases"].append(row)
+        times = ", ".join(f"{n} {row[n]:.4f}" for n in choices)
+        print(f"[{args.tag}] {row['case']}: device alone ms {times}; "
+              f"scaled_dot_product_attention {row['library_device_ms']:.4f} (flash GQA "
+              f"{gqa}); bound {row['bound_ms']:.4f} ({bound_by}; bytes "
+              f"{row['bounds_ms']['bytes']:.4f}, operations "
+              f"{row['bounds_ms']['operations']:.4f}, exponentials "
+              f"{row['bounds_ms']['exponentials']:.4f})", flush=True)
     print(json.dumps(out))
 
 

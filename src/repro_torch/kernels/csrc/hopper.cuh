@@ -1,7 +1,9 @@
 // PTX primitives shared by the hand-written kernels: cp.async, mbarriers,
 // TMA loads and their tensor maps, the async-proxy fence, named barriers,
-// wgmma and its shared-memory descriptors. The expert dW walk (dw_gemm.cuh, K3 and K5) and the
-// persistent row-tile GEMM (row_gemm.cuh, K1 and K4) are built from these.
+// setmaxnreg, wgmma (operands in shared memory, or A in registers) and its
+// shared-memory descriptors. The expert dW walk (dw_gemm.cuh, K3 and K5),
+// the persistent row-tile GEMM (row_gemm.cuh, K1, K2 and K4) and the
+// attention kernel (flash_attention.cu, K7) are built from these.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (headers only: no -lcuda)
@@ -80,15 +82,32 @@ __device__ __forceinline__ void tma_load_2d(uint32_t smem, const CUtensorMap* ma
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
 }
+// Fetches `map` (a __grid_constant__ parameter) ahead of its first load.
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+// The same for a 4-D map: the box at (c0 innermost, c1, c2, c3).
+__device__ __forceinline__ void tma_load_4d(uint32_t smem, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
 
-// A 2-D bf16 tensor map of a row-major (rows, cols) array with boxes of 64
-// columns (128 bytes) x box_rows rows, 128-byte swizzled in shared memory:
-// row r of a box at byte 128 r, its 16-byte chunk c at 16 (c ^ r % 8), the
-// layout the wgmma descriptors below read. cuTensorMapEncodeTiled comes
-// through the runtime's driver entry point, looked up once. False if the
-// driver refuses.
-inline bool tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                            uint32_t box_rows) {
+// A bf16 tensor map of `rank` dimensions (dims innermost first, strides in
+// bytes of dimensions 1.. rank - 1) with boxes of `box` elements whose
+// innermost extent is 64 (128 bytes), 128-byte swizzled in shared memory:
+// row r of a box (its outer coordinates flattened) at byte 128 r, its
+// 16-byte chunk c at 16 (c ^ r % 8), the layout the wgmma descriptors below
+// read. Elements outside the tensor are zeros and are not read, also where
+// the box is wider than the tensor. cuTensorMapEncodeTiled comes through the
+// runtime's driver entry point, looked up once. False if the driver refuses.
+inline bool tensor_map_bf16_nd(CUtensorMap* map, const void* base, int rank,
+                               const cuuint64_t* dims, const cuuint64_t* strides,
+                               const cuuint32_t* box) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -107,15 +126,22 @@ inline bool tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows, u
 #endif
     return found == cudaDriverEntryPointSuccess ? reinterpret_cast<Encode>(fn) : nullptr;
   }();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
-  const cuuint32_t box[2] = {64, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+  if (encode == nullptr || rank < 1 || rank > 5) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D map of a row-major (rows, cols) array with boxes of 64 columns x
+// box_rows rows.
+inline bool tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                            uint32_t box_rows) {
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {64, box_rows};
+  return tensor_map_bf16_nd(map, base, 2, dims, strides, box);
 }
 
 // Shared-memory writes made through the generic proxy (st.shared,
@@ -126,6 +152,23 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// Counts the executing warp's arrival at named barrier `id` without waiting.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Raise (or lower) the registers each thread of the executing warpgroup may
+// hold to N; a warp-specialised kernel's producer gives its registers to
+// its consumers. The whole warpgroup runs it, on a path that never joins
+// another role's.
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ----------------------------------------------------------------- wgmma
@@ -166,10 +209,12 @@ __device__ __forceinline__ uint64_t k_sw128_desc(uint32_t addr) {
 }
 
 // d (64 x 128, float32, the wgmma accumulator layout) += A B, A (64 x 16)
-// and B (16 x 128) bf16 in shared memory; B is MN-major, A MN-major with
-// TRANS_A 1 and K-major with TRANS_A 0.
-template <int TRANS_A>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+// and B (16 x 128) bf16 in shared memory; A is MN-major with TRANS_A 1 and
+// K-major with TRANS_A 0, B likewise with TRANS_B. With scale_d 0 the
+// product overwrites d (d = A B).
+template <int TRANS_A, int TRANS_B = 1>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -183,7 +228,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, 1;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
@@ -196,13 +241,14 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // The same for a 64 x 256 accumulator: B (16 x 256) is four 128-byte
 // swizzle atoms wide, `lbo` bytes apart.
-template <int TRANS_A>
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+template <int TRANS_A, int TRANS_B = 1>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -224,7 +270,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, %131, 1;\n"
+      "%128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -248,13 +294,14 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // The same for a 64 x 64 accumulator: B (16 x 64) is one 128-byte swizzle
 // atom wide.
-template <int TRANS_A>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+template <int TRANS_A, int TRANS_B = 1>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -264,7 +311,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, 1;\n"
+      "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
@@ -272,7 +319,71 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// d (64 x 64, float32, the wgmma accumulator layout) += A B with A (64 x
+// 16 bf16) in registers, four 32-bit pairs a thread in the accumulator
+// layout of a 64 x 16 product (so a score tile's accumulators, rounded to
+// bf16 pairs, are the A operand of the next product), and B (16 x 64) an
+// MN-major bf16 operand in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, float32, the wgmma accumulator layout) += A B with A (64 x
+// 16 bf16) in registers, four 32-bit pairs a thread in the accumulator
+// layout of a 64 x 16 product (so a score tile's accumulators, rounded to
+// bf16 pairs, are the A operand of the next product), and B (16 x 128) an
+// MN-major bf16 operand in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 }  // namespace hopper

@@ -432,9 +432,20 @@ def dw_split(n_tiles: int, n_experts: int, chunk: int) -> Tuple[int, int]:
     return n_chunks + n_experts, 2 * n_chunks
 
 
-# Arrival counters of the combine, per (device, stream): zero between calls,
-# since each call's last block of an output block resets its counter.
-_DW_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+# Arrival counters of the kernels' in-launch combines (K3 and K5 here, K7's
+# split merge), per (device, stream): zero between calls, since each call's
+# last block of a combine resets its counter, and the calls on one stream
+# run one after another, so they share one pool.
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(dev: torch.device, stream: int, need: int) -> torch.Tensor:
+    """At least ``need`` zeroed int32 counters for a call on ``stream``."""
+    key = (dev.index, stream)
+    counters = _COUNTERS.get(key)
+    if counters is None or counters.numel() < need:
+        counters = _COUNTERS[key] = torch.zeros(need, dtype=torch.int32, device=dev)
+    return counters
 
 
 def _dw_workspace(dev: torch.device, stream: int, m_pad: int, k_pad: int, n_pad: int):
@@ -443,12 +454,7 @@ def _dw_workspace(dev: torch.device, stream: int, m_pad: int, k_pad: int, n_pad:
     blocks (64 x 64 in float32)."""
     _, slots = dw_split(m_pad // TM, 0, DW_CHUNK)
     scratch = torch.empty(slots * k_pad * n_pad, dtype=torch.float32, device=dev)
-    key = (dev.index, stream)
-    need = slots * (k_pad // 64) * (n_pad // 64)
-    counters = _DW_COUNTERS.get(key)
-    if counters is None or counters.numel() < need:
-        counters = _DW_COUNTERS[key] = torch.zeros(need, dtype=torch.int32, device=dev)
-    return scratch, counters, slots
+    return scratch, _counters(dev, stream, slots * (k_pad // 64) * (n_pad // 64)), slots
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,11 @@ masks with -inf). The Pallas kernel masks with a finite -1e30 instead and
 would average V over such a row. No caller makes one: with
 ``kv_len >= 1`` key 0 is visible to every causal row.
 
+In bf16 the kernel packs the ``H // KV`` query heads of a KV head into
+128-row tiles of (position, head) rows and may split each tile's keys over
+several blocks, merged in the same launch; ``flash_schedule`` sizes the
+grid (csrc/flash_attention.cu describes the design).
+
 As for the kernels of ``kernels/cvmm.py``, the plain version
 ``flash_attention_plain`` runs for CPU tensors and only for them; a CUDA
 tensor launches the kernel or raises, also when grad mode is on and an
@@ -30,13 +35,68 @@ only too). Launches count in ``cvmm.LAUNCHES["flash_attention"]``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
-from .cvmm import LAUNCHES, _C, _DTYPE_CODE, _I, _check_cuda, _fn, _launch_status, _use_plain
+from .cvmm import (LAUNCHES, _C, _DTYPE_CODE, _I, _check_cuda, _counters, _fn,
+                   _launch_status, _sm_count, _use_plain)
 
 HEAD_DIMS = (16, 64, 128)   # csrc/flash_attention.cu's instantiations
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's schedule (csrc/flash_attention.cu, flash_fwd_bf16). An
+# item is (batch row, KV head, ROW_TILE-row tile of the packed rows), packed
+# row r being position r // grp of query head kv * grp + r % grp (grp = H //
+# KV). Its host-known keys, [0, min(Sk, q_offset + its last position + 1))
+# (all Sk without the causal mask), are FLASH_BK[D]-key tiles cut into at
+# most ``splits`` contiguous balanced runs of at least MIN_TILES tiles; the
+# grid is items x splits blocks, block i taking split i % splits of item
+# i // splits, one block an SM (the kernel's shared memory and registers).
+# ---------------------------------------------------------------------------
+ROW_TILE = 128
+MIN_TILES = 4
+FLASH_BK = {16: 128, 64: 128, 128: 64}     # keys a tile, by head size
+SCRATCH_THREADS = 256                       # the kernel's consumer threads
+
+
+def flash_item_tiles(rt: int, sq: int, sk: int, grp: int, causal: bool, q_offset: int,
+                     bk: int) -> int:
+    """Key tiles of row tile ``rt``'s items known on the host: up to the
+    causal limit of its last packed row (``kv_len`` cuts them further on the
+    device)."""
+    last = min(sq - 1, (rt * ROW_TILE + ROW_TILE - 1) // grp)
+    keys = min(sk, q_offset + last + 1) if causal else sk
+    return -(-max(keys, 0) // bk)
+
+
+def flash_split_ranges(n_tiles: int, splits: int) -> List[Tuple[int, int]]:
+    """The [lo, hi) key-tile runs of an item of ``n_tiles`` tiles under a
+    schedule of ``splits``: min(splits, n_tiles // MIN_TILES) of them (at
+    least one), contiguous, in order, sizes differing by at most one."""
+    n = min(splits, max(1, n_tiles // MIN_TILES))
+    return [(k * n_tiles // n, (k + 1) * n_tiles // n) for k in range(n)]
+
+
+def flash_packed_rows(rt: int, sq: int, grp: int) -> Tuple[List[int], List[int]]:
+    """(position, head in the group) of each packed row of row tile ``rt``
+    that lies inside the call (the tile's rows past Sq * grp are padding)."""
+    rows = range(rt * ROW_TILE, min((rt + 1) * ROW_TILE, sq * grp))
+    return [r // grp for r in rows], [r % grp for r in rows]
+
+
+def flash_schedule(b: int, sq: int, h: int, kvh: int, sk: int, q_offset: int, causal: bool,
+                   n_sms: int, bk: int = FLASH_BK[64]) -> Tuple[int, int, int, int]:
+    """(row tile, items, splits, grid) of one bf16 K7 call on a card of
+    ``n_sms`` SMs: the most splits with items x splits at most one block an
+    SM, and no more than the longest item's tiles // MIN_TILES (at least
+    one). Reads no device value: ``kv_len`` is left to the kernel."""
+    grp = h // kvh
+    n_rt = -(-sq * grp // ROW_TILE)
+    items = b * kvh * n_rt
+    longest = flash_item_tiles(n_rt - 1, sq, sk, grp, causal, q_offset, bk)  # the last tile's
+    splits = max(1, min(longest // MIN_TILES, n_sms // items))
+    return ROW_TILE, items, splits, items * splits
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -117,12 +177,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_len is not None and kv_len.dtype != torch.int64:
         raise ValueError("flash_attention: kv_len must be int64")
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    bk, splits, scratch, counters = 0, 1, None, None
+    if q.dtype == torch.bfloat16:
+        bk = FLASH_BK[d]
+        _, items, splits, grid = flash_schedule(b, sq, h, kvh, sk, q_offset, causal,
+                                                _sm_count(q.device), bk)
+        if splits > 1:
+            scratch = torch.empty(grid * (d // 2 + 4) * SCRATCH_THREADS,
+                                  dtype=torch.float32, device=q.device)
+            counters = _counters(q.device, stream, items)
     fn = _fn("flash_attention", "repro_flash_attention",
-             [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _C])
+             [_C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+              _I, _I, _I, _C])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            None if counters is None else counters.data_ptr(),
             b, sq, sk, h, kvh, d, float(scale), int(causal), q_offset,
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+            _DTYPE_CODE[q.dtype], bk, splits, stream)
     _launch_status("flash_attention", rc)
     LAUNCHES["flash_attention"] += 1
     return out

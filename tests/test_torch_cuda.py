@@ -504,7 +504,12 @@ def test_unfused_kernel_raises_under_grad(cuda):
 # five (tests/test_kernels_flash.py), granite-moe's heads at a 256-row
 # prefill chunk against a 1,552-key pool and at a 3,500-token prompt's last
 # two chunks against a 4,096-key pool, two batch rows with different
-# kv_len, a lane with kv_len 0, and the reduced config's D 16.
+# kv_len, a lane with kv_len 0, and the reduced config's D 16. Then the
+# cases the split-KV schedule exposes (kernels.flash_attention.
+# flash_schedule at 132 SMs): a kv_len 0 lane on items of 8 splits, a
+# batch row whose later splits are all empty (kv_len 300 of 2,048 keys),
+# one query head per KV head (grp 1) and four (grp 4) at D 64, and Sq 100
+# at grp 3 (a row tile ending inside a position's heads).
 FLASH_CASES = [
     (2, 128, 128, 4, 2, 128, True, 0, None),
     (1, 256, 256, 2, 2, 128, True, 0, None),
@@ -519,7 +524,13 @@ FLASH_CASES = [
     (2, 50, 261, 24, 8, 64, True, 77, (37, 200)),
     (2, 130, 261, 4, 2, 16, False, 128, (0, 200)),
     (1, 9, 40, 4, 2, 16, True, 31, None),
+    (2, 128, 4096, 8, 2, 64, True, 3072, (0, 3200)),
+    (2, 128, 2048, 4, 1, 64, True, 1920, (2048, 300)),
+    (1, 256, 1024, 8, 8, 64, True, 768, None),
+    (1, 100, 1024, 24, 8, 64, True, 900, (1000,)),
 ]
+# serve-long's last full prefill chunk: 48 items of 2 splits at 132 SMs.
+SPLIT_CASE = (1, 256, 4096, 24, 8, 64, True, 3072, (3328,))
 
 
 def _bf16_close(got, want) -> bool:
@@ -552,6 +563,9 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, case):
     torch.cuda.synchronize()
     assert K.LAUNCHES["flash_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
+    again = K7.flash_attention(q, k, v, **kw)
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       again.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
     want = K7.flash_attention_plain(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     if dtype == torch.bfloat16:
@@ -560,16 +574,62 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, case):
         assert bool((got[kv_len.index(0)] == 0).all())
 
 
-@pytest.mark.parametrize("fault", ["scale", "kv_len"])
+def _split_boundary(case) -> int:
+    """The first key of the second split of SPLIT_CASE's last item."""
+    b, sq, sk, h, kvh, d, causal, q_offset, _ = case
+    bk = K7.FLASH_BK[d]
+    _, items, splits, _ = K7.flash_schedule(b, sq, h, kvh, sk, q_offset, causal, 132, bk)
+    n_rt = -(-sq * (h // kvh) // K7.ROW_TILE)
+    n = K7.flash_item_tiles(n_rt - 1, sq, sk, h // kvh, causal, q_offset, bk)
+    ranges = K7.flash_split_ranges(n, splits)
+    assert len(ranges) > 1
+    return ranges[1][0] * bk
+
+
+def _tile_fault(k, v, kw, start, twice):
+    """K/V and arguments that emulate a merge that drops the 64 keys at
+    ``start`` or counts them twice: the keys removed (or repeated in place),
+    with kv_len and q_offset moved by 64 so the causal mask is unchanged."""
+    if twice:
+        k, v = (torch.cat([t[:, :start + 64], t[:, start:]], 1)[:, :t.shape[1]] for t in (k, v))
+        shift = 64
+    else:
+        k, v = (torch.cat([t[:, :start], t[:, start + 64:], t[:, :64]], 1) for t in (k, v))
+        shift = -64
+    return k.contiguous(), v.contiguous(), dict(kw, q_offset=kw["q_offset"] + shift,
+                                                 kv_len=kw["kv_len"] + shift)
+
+
+@pytest.mark.parametrize("fault", ["scale", "kv_len", "drop_tile", "twice_tile"])
 def test_flash_attention_bf16_check_rejects_a_faulty_kernel(cuda, fault):
-    """The bf16 check is tight enough to see a softmax scale 10 % off, or
-    three keys read past kv_len."""
-    q, k, v, kw = _flash_inputs(cuda, torch.bfloat16,
-                                (2, 256, 1552, 24, 8, 64, True, 512, (300, 768)))
-    bad = (dict(kw, scale=kw["scale"] * 1.1) if fault == "scale"
-           else dict(kw, kv_len=kw["kv_len"] + 3))
-    assert not _bf16_close(K7.flash_attention(q, k, v, **bad),
-                           K7.flash_attention_plain(q, k, v, **kw))
+    """The bf16 check is tight enough to see a softmax scale 10 % off, three
+    keys read past kv_len, or a split merge that drops the 64-key tile at a
+    split boundary or counts it twice (both emulated through the inputs)."""
+    if fault in ("scale", "kv_len"):
+        q, k, v, kw = _flash_inputs(cuda, torch.bfloat16,
+                                    (2, 256, 1552, 24, 8, 64, True, 512, (300, 768)))
+        bad = (dict(kw, scale=kw["scale"] * 1.1) if fault == "scale"
+               else dict(kw, kv_len=kw["kv_len"] + 3))
+        got = K7.flash_attention(q, k, v, **bad)
+    else:
+        q, k, v, kw = _flash_inputs(cuda, torch.bfloat16, SPLIT_CASE)
+        kb, vb, bad = _tile_fault(k, v, kw, _split_boundary(SPLIT_CASE), fault == "twice_tile")
+        got = K7.flash_attention(q, kb, vb, **bad)
+    assert not _bf16_close(got, K7.flash_attention_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("scale", [-0.2, 0.0])
+def test_flash_attention_kernel_takes_any_scale(cuda, dtype, tol, scale):
+    """A negative softmax scale (the bf16 kernel negates Q for it) and a
+    zero one (a uniform average over the visible keys)."""
+    q, k, v, kw = _flash_inputs(cuda, dtype, (2, 50, 261, 24, 8, 64, True, 77, (37, 200)))
+    kw = dict(kw, scale=scale)
+    got, want = K7.flash_attention(q, k, v, **kw), K7.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        assert _bf16_close(got, want)
 
 
 def test_flash_attention_kernel_raises_under_grad(cuda):

@@ -1,9 +1,11 @@
 """K7 on the CPU: the port's ``flash_attention_plain`` (the chunked core,
 K7's plain version) against the reference's Pallas kernel (interpret mode)
 and its pure-JAX ``models.attention.flash_attention`` with ``q_offset`` and
-``kv_len``; the routing of ``models.attention.attend``; and a reduced
+``kv_len``; the routing of ``models.attention.attend``; a reduced
 granite-moe paged prefill over several chunks against the reference's
-``prefill_paged``.
+``prefill_paged``; and the bf16 kernel's split-KV schedule
+(``flash_schedule``) with a plain-torch emulation of its split partials and
+their merge against ``flash_attention_plain``.
 
 Inputs come from numpy seeds; weights cross over through
 ``repro_torch.convert``. Tolerances: the reference oracle's
@@ -25,6 +27,7 @@ from repro_torch.kernels import cvmm as K
 from repro_torch.kernels import flash_attention as K7
 from repro_torch.models import LM
 from repro_torch.models import attention as attn
+from test_torch_cuda import FLASH_CASES
 
 ORACLE_CASES = [
     # (b, sq, sk, h, kv, d, causal), as tests/test_kernels_flash.py
@@ -218,3 +221,139 @@ def test_paged_prefill_over_chunks_matches_reference(granite, monkeypatch, route
             for _ in range(lm.cfg.n_layers)]
     assert [(c["q_offset"], int(c["kv_len"][0])) for c in calls] == want
     assert all(c["shape"] == (1, chunk, 4, 16) and c["causal"] for c in calls)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's schedule (csrc/flash_attention.cu): packed GQA row tiles,
+# split-KV over the card, and the merge of the splits' partials.
+# ---------------------------------------------------------------------------
+SCHEDULE_SHAPES = [case[:8] for case in FLASH_CASES] + [
+    (1, 32, 128, 24, 8, 64, True, 64),        # serve's prefill chunk
+    (4, 32, 4096, 24, 8, 64, True, 3456),     # four lanes, a short chunk, a long cache
+    (1, 1, 4096, 24, 8, 64, True, 4095),      # one row
+    (1, 256, 4096, 24, 8, 64, False, 0),      # no causal mask
+]
+
+
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_flash_schedule_covers_each_items_keys_once(shape):
+    """Every item's host-known key tiles, [0, min(Sk, q_offset + its last
+    position + 1)) in BK-key tiles, are covered once, in order, in whole
+    tiles, by at most ``splits`` runs of at least MIN_TILES tiles each (one
+    run when the item is shorter)."""
+    b, sq, sk, h, kvh, d, causal, q_offset = shape
+    grp, bk = h // kvh, K7.FLASH_BK[d]
+    row_tile, items, splits, grid = K7.flash_schedule(b, sq, h, kvh, sk, q_offset, causal,
+                                                      132, bk)
+    n_rt = -(-sq * grp // row_tile)
+    assert row_tile == 128 and items == b * kvh * n_rt and grid == items * splits
+    for rt in range(n_rt):
+        last = min(sq - 1, (rt * row_tile + row_tile - 1) // grp)
+        keys = min(sk, q_offset + last + 1) if causal else sk
+        n = K7.flash_item_tiles(rt, sq, sk, grp, causal, q_offset, bk)
+        assert n == -(-keys // bk) and (n - 1) * bk < keys <= n * bk
+        ranges = K7.flash_split_ranges(n, splits)
+        assert 1 <= len(ranges) <= splits
+        assert [lo for lo, _ in ranges] == [0] + [hi for _, hi in ranges[:-1]]
+        assert ranges[-1][1] == n
+        assert len(ranges) == 1 or all(hi - lo >= K7.MIN_TILES for lo, hi in ranges)
+        sizes = [hi - lo for lo, hi in ranges]
+        assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("grp,sq", [(1, 100), (2, 100), (3, 100), (4, 50), (3, 256)])
+def test_flash_packed_rows_map_one_to_one(grp, sq):
+    """Packed row r of a KV head is position r // grp of head r % grp of the
+    group: the row tiles cover every (position, head) once, Sq not a
+    multiple of 128 / grp included."""
+    n_rt = -(-sq * grp // K7.ROW_TILE)
+    seen = []
+    for rt in range(n_rt):
+        pos, head = K7.flash_packed_rows(rt, sq, grp)
+        assert len(pos) == len(head) <= K7.ROW_TILE
+        seen += list(zip(pos, head))
+    assert sorted(seen) == [(p, j) for p in range(sq) for j in range(grp)]
+    assert len(seen) == len(set(seen)) == sq * grp
+
+
+def test_flash_schedule_fills_a_wave_at_serve_long_and_one_split_at_serve():
+    """At serve-long's last full chunk on 132 SMs the most splits that keep
+    one block an SM (48 items of 2: a third split would need 144 blocks, two
+    waves); serve's chunks (at most 32 tokens over at most 128 keys) take
+    one split and so no scratch."""
+    row_tile, items, splits, grid = K7.flash_schedule(1, 256, 24, 8, 4096, 3072, True, 132)
+    assert (items, splits, grid) == (48, 2, 96)
+    assert items * splits <= 132 < items * (splits + 1)
+    for sq, q_offset in ((32, 0), (32, 64), (17, 96), (1, 127)):
+        assert K7.flash_schedule(1, sq, 24, 8, 128, q_offset, True, 132)[2] == 1
+    # FLASH_CASES' split cases: the kv_len 0 lane's items take several
+    # splits, and kv_len 300 ends inside the first split of its items.
+    assert K7.flash_schedule(2, 128, 8, 2, 4096, 3072, True, 132)[2] > 1
+    splits = K7.flash_schedule(2, 128, 4, 1, 2048, 1920, True, 132)[2]
+    ranges = K7.flash_split_ranges(K7.flash_item_tiles(0, 128, 2048, 4, True, 1920, 128), splits)
+    assert len(ranges) > 1 and 300 < ranges[0][1] * 128
+
+
+def _split_emulation(q, k, v, *, causal, scale, q_offset, kv_len, bk, splits):
+    """The bf16 kernel's arithmetic in float32 plain torch, split by split:
+    each split's partial (m in the exp2 domain, l, unnormalised O) over its
+    key tiles cut at kv_len and each row's causal limit, then the merge in
+    split order, 2^(m_k - max m) weights, out = sum w O / max(sum w l,
+    1e-20); one split writes O / max(l, 1e-20)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    grp, c = h // kvh, abs(scale) * 1.4426950408889634
+    out = torch.zeros_like(q)
+    n_rt = -(-sq * grp // K7.ROW_TILE)
+    for bi in range(b):
+        kvl = max(0, min(sk, sk if kv_len is None else int(kv_len[bi])))
+        for kv in range(kvh):
+            for rt in range(n_rt):
+                pos, head = (torch.tensor(x) for x in K7.flash_packed_rows(rt, sq, grp))
+                rows = q[bi, pos, kv * grp + head] * (1 if scale >= 0 else -1)
+                lim = torch.full_like(pos, kvl - 1)
+                if causal:
+                    lim = torch.minimum(lim, q_offset + pos)
+                n = K7.flash_item_tiles(rt, sq, sk, grp, causal, q_offset, bk)
+                parts = []
+                for lo, hi in K7.flash_split_ranges(n, splits):
+                    hi = max(lo, min(hi, -(-kvl // bk)))
+                    keys = torch.arange(lo * bk, min(hi * bk, sk))
+                    s = rows @ k[bi, keys, kv].T
+                    s = s.masked_fill(keys[None, :] > lim[:, None], float("-inf"))
+                    m = (s.amax(1) if keys.numel() else
+                         torch.full((len(pos),), float("-inf"))) * c
+                    base = torch.where(torch.isneginf(m), 0.0, m)
+                    p = torch.exp2(s * c - base[:, None])
+                    parts.append((m, p.sum(1), p @ v[bi, keys, kv]))
+                if len(parts) == 1:
+                    m, l, o = parts[0]
+                    res = o / l.clamp_min(1e-20)[:, None]
+                else:
+                    top = torch.stack([m for m, _, _ in parts]).amax(0)
+                    top = torch.where(torch.isneginf(top), 0.0, top)
+                    w = [torch.exp2(m - top) for m, _, _ in parts]
+                    l = sum(wk * lk for wk, (_, lk, _) in zip(w, parts))
+                    o = sum(wk[:, None] * ok for wk, (_, _, ok) in zip(w, parts))
+                    res = o / l.clamp_min(1e-20)[:, None]
+                out[bi, pos, kv * grp + head] = res
+    return out
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_split_merge_emulation_matches_plain(case):
+    """The kernel's split partials and merge, emulated in float32 over the
+    schedule's splits at 132 SMs, equal flash_attention_plain within 1e-6:
+    among them a kv_len 0 lane on items of several splits (all partials
+    empty) and a lane whose kv_len (300) ends inside the first split."""
+    b, sq, sk, h, kvh, d, causal, q_offset, kv_len = case
+    q, k, v = _torch(_qkv(sq + sk, b, sq, sk, h, kvh, d))
+    kl = None if kv_len is None else torch.tensor(kv_len)
+    kw = dict(causal=causal, scale=d ** -0.5, q_offset=q_offset, kv_len=kl)
+    bk = K7.FLASH_BK[d]
+    splits = K7.flash_schedule(b, sq, h, kvh, sk, q_offset, causal, 132, bk)[2]
+    got = _split_emulation(q, k, v, bk=bk, splits=splits, **kw)
+    torch.testing.assert_close(got, K7.flash_attention_plain(q, k, v, **kw),
+                               atol=1e-6, rtol=1e-6)
+    if kv_len is not None and 0 in kv_len:
+        assert not got[kv_len.index(0)].any()
