@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero before the result line). 1-6 are the
 serving slice, 7-10 the training slice on the fused rung, 11-14 training on
-the unfused rung, 15-18 K7 and the long-prompt serving run:
+the unfused rung, 15-18 K7 and the long-prompt serving run, A-E the paper's
+dense/sigma-MoE pairs, their eval step and checkpoint/resume:
 
 1. the card: torch's device name and nvidia-smi's name and power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
@@ -95,7 +96,40 @@ the unfused rung, 15-18 K7 and the long-prompt serving run:
     by CUDA events around back-to-back calls and around calls queued
     while the device sleeps (the device's time alone), with the bf16
     kernel's schedule and ptxas' registers, spills and shared memory;
-19. one ``{"kernels": [...]}`` JSON line, then the device line last.
+A. the training kernels (phase 7's cases) against their plain versions at
+   wt103-262m-moe's and enwik8-41m-moe's training shapes (batch 16 x 513
+   tokens, top-4 of 32 and of 16 experts, d_model 1,024 and 512), and each
+   timed as phase 10 does;
+B. phase 8's step gates on one full-width wt103-262m-moe step (batch 16 x
+   512) under PyTorch's deterministic algorithms, so that both sides differ
+   only in the kernels' arithmetic; a bf16 depth-2 step whose losses pass
+   2e-2 but whose worst gradient leaf does not is held to the yardstick
+   instead (at this width that leaf, layer 0's XL ``w_r``, sits at bf16's
+   noise), after the plain versions' step is run twice to show the
+   comparison's own noise; that depth-2 rule must pass on three more seeds
+   and reject, by the yardstick alone too, a planted K2 fault (gate rows
+   exchanged) and a planted K4 fault (a 64-deep stage dropped);
+C. the paper's larger pair, wt103-262m-dense then wt103-262m-moe, through
+   ``python -m repro_torch.launch.train --steps 30 --batch 16 --seq 512`` at
+   full width and depth in process, on one seed: finite, falling loss,
+   exactly 2 K1, 1 K2, 2 K3 and 1 K4 per MoE layer every step of the
+   sigma-MoE run and none in the dense run, step time, tokens/s, peak
+   memory, both parameter counts (equal to the reference's) and their
+   ratio; then the eval step on 4 held-out batches (seed + 1,000), finite
+   and below each model's step-0 training loss;
+D. the same for the byte-level pair enwik8-41m-dense and enwik8-41m-moe,
+   with ``--data`` a corpus of the repo's own files (the Python sources
+   under src/ and tests/ and the top-level Markdown files, sorted, bytes
+   concatenated), and bits per byte on the held-out batches;
+E. checkpoint and resume: wt103-47m-moe at full width (batch 32 x 256, 12
+   steps, ``--ckpt-every 6``), run A uninterrupted, run B failing at step
+   6 after its checkpoint committed and resumed with ``--resume`` ("[resume]
+   restored step 6"), run C uninterrupted again; B must equal A bit for bit
+   if C does, else stay within 2x C's worst per-leaf distance from A; the
+   gate must reject resumes with the dropout generator's or the data
+   iterator's state left fresh;
+19. one ``{"kernels": [...]}`` JSON line (with A's wt103-262m-moe rows of
+    K1, K2, K3 and K4, their launches from C), then the device line last.
 
 With ``--out``, the full results (every phase's numbers and the ptxas
 reports) are also written there as JSON.
@@ -137,7 +171,19 @@ YARDSTICK = 1.5
 # float32 plain versions may each be at most this many times the bf16 plain
 # versions' (cuBLAS) against the same float32 run.
 TRAIN = dict(arch="wt103-47m-moe", batch=32, seq=256, steps=30)
-LONG = dict(arch="granite-moe-3b-a800m", requests=64, prompt=3500, max_new=32,
+PAIRS = {"wt103": ("wt103-262m-dense", "wt103-262m-moe"),
+         "enwik8": ("enwik8-41m-dense", "enwik8-41m-moe")}
+PAIR = dict(batch=16, seq=512, steps=30, eval_batches=4)
+# The paper's parameter-equal dense/sigma-MoE pairs (Tab. 8/9) at their
+# published widths and depths, at batch 16 x 512 (512 tokens a segment, the
+# configs' XL context), trained phase 9's 30 steps from one seed.
+PAPER_PARAMS = {"wt103-262m-dense": 262_772_736, "wt103-262m-moe": 262_846_464,
+                "enwik8-41m-dense": 41_518_080, "enwik8-41m-moe": 41_554_944}
+# The reference's parameter counts (jax.eval_shape of its LM.init;
+# tests/test_torch_paper_configs.py holds the port's count to them).
+RESUME = dict(arch="wt103-47m-moe", batch=32, seq=256, steps=12, every=6)
+# Phase E: phase 9's model and batch, checkpointed every 6 of 12 steps.
+LONG = dict(arch="granite-moe-3b-a800m", requests=32, prompt=3500, max_new=32,
             max_batch=4, max_len=4096, page_size=16, prefill_chunk=256, burst_steps=8)
 # serve-long (phase 16): retrieval-augmented QA over long documents, where
 # prefill attention, not decode, sets the time to the first token. Lengths
@@ -145,7 +191,8 @@ LONG = dict(arch="granite-moe-3b-a800m", requests=64, prompt=3500, max_new=32,
 # (HotpotQA, 2WikiMQA, MuSiQue) as its harness runs a 4k-context model:
 # prompts cut to 3,500 tokens (config/model2maxlen.json), at most 32 new
 # tokens (config/dataset2maxlen.json). max_len is granite's 4,096 context.
-# Each task has 200 requests; 64 keep the script inside half its time limit.
+# Each task has 200 requests; 32 keep the script, with phases A-E, inside
+# half its time limit (64 took 250-463 s alone, host-bound).
 SERVE_E, SERVE_D, SERVE_G = 40, 1536, 512      # granite-moe-3b-a800m's MoE widths
 K4_CASES = [(5120, SERVE_D, SERVE_G, "decode"), (5120, SERVE_G, SERVE_D, "decode"),
             (10240, SERVE_D, SERVE_G, "decode"), (5120, SERVE_D, SERVE_G, "random"),
@@ -382,6 +429,9 @@ def main() -> None:
     k7_row = _long_prompt_slice(args.seed, dev, gen, K, K7, results)
     k7_row["launches_serve"] = launches["flash_attention"]
 
+    # ------------------------------- A-E. the paper's dense/sigma-MoE pairs
+    pair_rows = _paper_pair_slice(args.seed, dev, gen, K, results)
+
     # ------------------------------------------------------------ 19. report
     def row(kernel, shape, source, replaces):
         t = next(t for t in timings if t["kernel"] == kernel and t["shape"] == shape
@@ -414,7 +464,8 @@ def main() -> None:
     k6["launches_serve_long"] = results["serve_long"]["launches"]["gather_rows"]
     line = {"kernels": [
         train["rows"]["fused_w1"], train["rows"]["fused_w2"],
-        train["rows"]["dw_streamed"], k4, train["rows"]["cvmm_dw"], k6, k7_row]}
+        train["rows"]["dw_streamed"], k4, train["rows"]["cvmm_dw"], k6, k7_row,
+        *pair_rows]}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1, default=str))
@@ -588,25 +639,16 @@ def _time_serving_kernels(dev, gen, K, ops, errs, normwise, results):
     return timings
 
 
-def _training_slice(seed, dev, gen, K, results):
-    """Phases 7-14: the training slice's kernels, one step kernels vs plain,
-    the 30-step main path, and its measurements, on the fused rung (7-10)
-    and the unfused rung (11-14). Returns the launch counts of both main
-    paths and the report rows of K1, K2, K3 and K5."""
+def _training_kernels(tag, n, k, E, d, G, dev, gen, K, ops):
+    """Phases 7 and A: the training kernels (K1 in its four variants and as
+    t0, K2, K3 in its three, K4 dX) against their plain versions for ``n``
+    tokens routed top-``k`` over ``E`` experts of ``G`` at d_model ``d``, in
+    bf16 and float32, on three plans (all experts, one expert empty, one
+    skewed), each kernel the same bits on a second call, and the bf16 gate's
+    faulty K2. Returns (plans, inputs(dtype, plan), errors, normwise errors,
+    the empty expert)."""
     import torch
-    from repro_torch.configs import OptimizerConfig, get_config
-    from repro_torch.core import routing
-    from repro_torch.data import DataIterator, make_dataset
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train as train_cli
-    from repro_torch.models import build_model
-    from repro_torch.runtime import init_train_state, make_train_step
 
-    cfg = get_config(TRAIN["arch"])
-    n, k, E, d, G = TRAIN["batch"] * (TRAIN["seq"] + 1), cfg.ffn.k, cfg.ffn.n_experts, \
-        cfg.d_model, cfg.ffn.expert_size
-
-    # ------------------------------------- 7. training kernels vs plain versions
     def draw_plan(skip=None, favour=None):
         # favour: that expert's keys scaled by 0.3, so about 3x the mean rows
         # pick it, its tiles spanning many of K3's and K5's chunks
@@ -622,14 +664,14 @@ def _training_slice(seed, dev, gen, K, results):
              "skewed": draw_plan(favour=0)}
     for name, plan in plans.items():
         slack = (plan.row_src.view(-1, 128) >= n).all(1).sum().item()
-        print(f"[7] plan '{name}': N {n} x top-{k}, E {E}, M_pad {plan.m_pad}, "
+        print(f"[{tag}] plan '{name}': N {n} x top-{k}, E {E}, M_pad {plan.m_pad}, "
               f"{plan.m_pad // 128} tiles of which {slack} all-sentinel; rows per "
               f"expert {plan.group_sizes.tolist()}")
         if not slack:
             fail("the plan has no all-sentinel slack tile")
     rows = plans["skewed"].group_sizes.float()
     chunks = -(-int(rows.max()) // 128) // K.DW_CHUNK
-    print(f"[7] plan 'skewed': the busiest expert has {rows.max() / rows.mean():.2f}x "
+    print(f"[{tag}] plan 'skewed': the busiest expert has {rows.max() / rows.mean():.2f}x "
           f"the mean rows, {chunks}+ of K3's and K5's chunks of {K.DW_CHUNK} tiles")
     if rows.max() < 2.5 * rows.mean() or chunks < 4:
         fail("the skewed plan is not skewed")
@@ -722,7 +764,7 @@ def _training_slice(seed, dev, gen, K, results):
             normed = kernel in ("fused_w1", "cvmm", "fused_w2") and dn == "bfloat16"
             if normed:
                 ok = ok and rel <= BF16_REL
-            print(f"[7] {name} {dn}: max_abs_err {err:.3g} (tol {tol}), normwise {rel:.3g}"
+            print(f"[{tag}] {name} {dn}: max_abs_err {err:.3g} (tol {tol}), normwise {rel:.3g}"
                   f"{f' (limit {BF16_REL})' if normed else ''}, "
                   f"{100 * differ:.3f}% of elements differ"
                   f"{', same bits twice' if len(outs) == 3 else ''}{zeros} "
@@ -741,13 +783,37 @@ def _training_slice(seed, dev, gen, K, results):
                 b_ok, b_err, b_rel, lim = close(K.fused_w2(t["u"], p.tile_expert, t["w2"],
                                                            swapped), want[0], tol, dn,
                                                 ulps=False)
-                print(f"[7] faulty fused_w2 (gates of rows r and r + 8 exchanged), {pkey} "
+                print(f"[{tag}] faulty fused_w2 (gates of rows r and r + 8 exchanged), {pkey} "
                       f"{dn}: max_abs_err {b_err:.3g}, normwise {b_rel:.3g} ({lim}): "
                       f"{'PASSED, the gate is too loose' if b_ok else 'rejected'}")
                 if b_ok:
                     fail("the bf16 gate let a faulty fused_w2 (gate rows exchanged) through")
                 normwise[("faulty " + name, dn)] = b_rel
         del tens
+    return plans, inputs, errs, normwise, empty
+
+
+def _training_slice(seed, dev, gen, K, results):
+    """Phases 7-14: the training slice's kernels, one step kernels vs plain,
+    the 30-step main path, and its measurements, on the fused rung (7-10)
+    and the unfused rung (11-14). Returns the launch counts of both main
+    paths and the report rows of K1, K2, K3 and K5."""
+    import torch
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.core import routing
+    from repro_torch.data import DataIterator, make_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    cfg = get_config(TRAIN["arch"])
+    n, k, E, d, G = TRAIN["batch"] * (TRAIN["seq"] + 1), cfg.ffn.k, cfg.ffn.n_experts, \
+        cfg.d_model, cfg.ffn.expert_size
+
+    # ------------------------------------- 7. training kernels vs plain versions
+    plans, inputs, errs, normwise, empty = _training_kernels("7", n, k, E, d, G, dev,
+                                                             gen, K, ops)
     results["phase7"] = {f"{a} {b}": v for (a, b), v in errs.items()}
     results["phase7_normwise"] = {f"{a} {b}": v for (a, b), v in normwise.items()}
 
@@ -907,6 +973,319 @@ def _training_slice(seed, dev, gen, K, results):
                                                 else "pallas_fused") + " rung"}
     return {"launches": fused["launches"], "launches_unfused": unfused["launches"],
             "rows": rows}
+
+
+def _phase_b(seed, dev, K, ops, routing):
+    """Phase B: one full-width wt103-262m-moe step with the kernels against
+    the same step with the plain versions and pinned expert choices, under
+    phase 8's three gates, the bf16 depth-2 one by ``_depth2_verdict``'s
+    rule. Then that rule at depth 2 on three more seeds, each of which must
+    pass, and on each planted fault, which the yardstick alone and the
+    whole rule must reject."""
+    import torch
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.data import DataIterator, make_dataset
+
+    cfg = get_config(PAIRS["wt103"][1])
+
+    def three_steps_for(s):
+        stream = DataIterator(make_dataset("synthetic", cfg.vocab_size), PAIR["batch"],
+                              PAIR["seq"] + 1, seed=s)
+        batches = [{"tokens": torch.as_tensor(stream.next()["tokens"], device=dev)}
+                   for _ in range(3)]
+        return _three_steps_fn(batches, OptimizerConfig(total_steps=3), s, dev,
+                               batch=PAIR["batch"])
+
+    # Deterministic algorithms, so that the two sides differ only in the
+    # kernels' arithmetic: at 18 layers the float32 scatters' atomic order
+    # alone moved a gradient leaf by up to 4e-3 between runs on an H100,
+    # twice the float32 tolerance.
+    with deterministic_algorithms("B"):
+        out = _step_gates("B", cfg, "pallas_fused", three_steps_for(seed), K, ops, routing,
+                          depth2_yardstick=True)
+        depth2 = cfg.override(n_layers=2)
+        out["depth2_seeds"] = {}
+        for s in (seed + 1, seed + 2, seed + 3):
+            passed, out["depth2_seeds"][s] = _depth2_gate(f"B seed {s}", depth2,
+                                                          "pallas_fused", three_steps_for(s),
+                                                          K, ops, routing)
+            if not passed:
+                fail(f"bfloat16, depth 2, seed {s}: the kernels' training step disagrees "
+                     "with the plain versions' under the fixed gate and the yardstick alike")
+        out["depth2_faults"] = {}
+        for fault in ("K2 gate rows exchanged", "K4 stage dropped"):
+            passed, record = _depth2_gate(f"B {fault}", depth2, "pallas_fused",
+                                          three_steps_for(seed), K, ops, routing, fault)
+            out["depth2_faults"][fault] = record
+            print(f"[B] planted fault, {fault}: the yardstick "
+                  f"{'PASSES it' if record['yardstick'] else 'rejects it'}, the rule "
+                  f"{'PASSES it' if passed else 'rejects it'}")
+            if passed or record["yardstick"]:
+                fail(f"phase B's depth-2 rule let a planted fault ({fault}) through")
+    return out
+
+
+def _paper_pair_slice(seed, dev, gen, K, results):
+    """Phases A-E: the paper's parameter-equal dense/sigma-MoE pairs. A: the
+    training kernels at the new configs' shapes; B: one full-width
+    wt103-262m-moe step, kernels against plain versions; C and D: each pair
+    trained through the trainer's entry point, then evaluated; E: checkpoint
+    and resume. Returns the kernels line's wt103-262m-moe rows."""
+    import torch
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.core import routing
+    from repro_torch.data import DataIterator, make_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    n = PAIR["batch"] * (PAIR["seq"] + 1)
+
+    # ---------------------------------- A. the kernels at the new shapes
+    timings = {}
+    for arch in (PAIRS["wt103"][1], PAIRS["enwik8"][1]):
+        t0 = time.perf_counter()
+        f, d = get_config(arch).ffn, get_config(arch).d_model
+        tag = f"A {arch}"
+        plans, inputs, errs, _, _ = _training_kernels(tag, n, f.k, f.n_experts, d,
+                                                      f.expert_size, dev, gen, K, ops)
+        timings[arch] = _time_training_kernels(tag, "pallas_fused", K, plans["all experts"],
+                                               inputs(torch.bfloat16, plans["all experts"]),
+                                               n, d, f.expert_size, f.n_experts, errs)
+        results.setdefault("phaseA", {})[arch] = {
+            "errors": {f"{a} {b}": v for (a, b), v in errs.items()},
+            "timings": timings[arch]}
+        del plans
+        print(f"[A] {arch}: took {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # ------------- B. one full-width wt103-262m-moe step: kernels vs plain
+    t0 = time.perf_counter()
+    results["phaseB"] = _phase_b(seed, dev, K, ops, routing)
+    torch.cuda.empty_cache()
+    print(f"[B] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ------------------------------- C and D. the pairs, trained, evaluated
+    build = ROOT / "build" / "chip_smoke"
+    build.mkdir(parents=True, exist_ok=True)
+    corpus = build / "corpus.bin"
+    files = _corpus_files()
+    with open(corpus, "wb") as out:
+        for path in files:
+            out.write((ROOT / path).read_bytes())
+    print(f"[D] byte corpus: {len(files)} files (src/**/*.py, tests/*.py, *.md), "
+          f"{corpus.stat().st_size:,} bytes -> {corpus.relative_to(ROOT)}", flush=True)
+    stream = DataIterator(make_dataset("synthetic", get_config(PAIRS["wt103"][1]).vocab_size),
+                          PAIR["batch"], PAIR["seq"] + 1, seed=seed)
+    runs = {}
+    for tag, pair, data in (("C", "wt103", "synthetic"), ("D", "enwik8", str(corpus))):
+        t0 = time.perf_counter()
+        for arch in PAIRS[pair]:
+            layers = get_config(arch).n_layers
+            moe = get_config(arch).ffn.kind == "sigma_moe"
+            want = dict.fromkeys(K.LAUNCHES, 0) | ({
+                "fused_w1": 2 * layers, "fused_w2": layers, "dw_streamed": 2 * layers,
+                "cvmm": layers} if moe else {})
+            argv = ["--arch", arch, "--steps", str(PAIR["steps"]), "--batch",
+                    str(PAIR["batch"]), "--seq", str(PAIR["seq"]), "--seed", str(seed),
+                    "--data", data, "--device", dev.type]
+            run = _train_main_path(tag, argv, want, K, train_cli,
+                                   eval_batches=PAIR["eval_batches"])
+            _print_run(tag, run)
+            torch.cuda.empty_cache()
+            if pair == "wt103":
+                lm = build_model(get_config(arch))
+                opt = OptimizerConfig(total_steps=PAIR["steps"])
+                state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed),
+                                         opt, use_mems=True, batch=PAIR["batch"], device=dev)
+                run["profile"], _ = _profile_train_step(
+                    tag, lm, state, {"tokens": torch.as_tensor(stream.next()["tokens"],
+                                                               device=dev)},
+                    make_train_step(lm, opt), dev, K, ops)
+                del lm, state
+                torch.cuda.empty_cache()
+            evals = run["eval_losses"]
+            bpb = [c / math.log(2) for c in run["eval_ce"]]
+            print(f"[{tag}] {arch}: {run['n_params']:,} params (reference "
+                  f"{PAPER_PARAMS[arch]:,}); eval loss on {len(evals)} held-out batches "
+                  f"(seed + 1000) {[round(x, 4) for x in evals]}, step-0 training loss "
+                  f"{run['losses'][0]:.4f}"
+                  + (f"; bits per byte {[round(x, 4) for x in bpb]}" if pair == "enwik8"
+                     else ""), flush=True)
+            if run["n_params"] != PAPER_PARAMS[arch]:
+                fail(f"{arch}: {run['n_params']} parameters, the reference has "
+                     f"{PAPER_PARAMS[arch]}")
+            if not all(math.isfinite(x) and x < run["losses"][0] for x in evals):
+                fail(f"{arch}: eval losses {evals} not finite and below the step-0 "
+                     f"training loss {run['losses'][0]}")
+            runs[arch] = run | {"bits_per_byte": bpb if pair == "enwik8" else None}
+        dense, moe = (runs[a] for a in PAIRS[pair])
+        print(f"[{tag}] parameters sigma-MoE / dense = {moe['n_params']:,} / "
+              f"{dense['n_params']:,} = {moe['n_params'] / dense['n_params']:.6f}; step "
+              f"{moe['step_ms']:.2f} / {dense['step_ms']:.2f} ms; last-5 loss "
+              f"{moe['last5']:.4f} / {dense['last5']:.4f}")
+        print(f"[{tag}] took {time.perf_counter() - t0:.1f} s", flush=True)
+    corpus.unlink()
+    results["pairs"] = runs
+
+    # ---------------------------------------------- E. checkpoint and resume
+    t0 = time.perf_counter()
+    results["resume"] = _resume_phase(seed, dev, train_cli, build)
+    print(f"[E] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    src = "src/repro_torch/kernels/csrc/"
+    arch = PAIRS["wt103"][1]
+    rows = []
+    for kernel, case, source, replaces in (
+            ("fused_w1", "fused_w1 relu+h (forward)", "fused_w1.cu", "cvmm.py:513"),
+            ("fused_w2", "fused_w2 (forward)", "fused_w2.cu", "cvmm.py:820"),
+            ("dw_streamed", "dw_streamed stream_x (dW1)", "dw_streamed.cu", "cvmm.py:730"),
+            ("cvmm", "cvmm (dX = dh w1^T)", "cvmm.cu", "cvmm.py:241")):
+        t = next(t for t in timings[arch] if t["case"] == case)
+        rows.append({"name": kernel, "route": "cuda", "source": src + source,
+                     "replaces": "src/repro/kernels/" + replaces,
+                     "launches": runs[arch]["launches"][kernel],
+                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "device_ms": t["device_ms"],
+                     "library_device_ms": t["library_device_ms"], "shape": t["shape"],
+                     "dtype": "bfloat16", "path": f"training, {arch}, pallas_fused rung"})
+    return rows
+
+
+def _corpus_files():
+    """The byte corpus's files, sorted: the Python sources under src/ and
+    tests/ and the top-level Markdown files. The same list in a git checkout
+    and in an unpacked archive of one."""
+    files = [*ROOT.glob("src/**/*.py"), *ROOT.glob("tests/*.py"), *ROOT.glob("*.md")]
+    return sorted(str(p.relative_to(ROOT)) for p in files)
+
+
+def _resume_phase(seed, dev, train_cli, build):
+    """Phase E: wt103-47m-moe at full width, checkpointed every 6 of 12
+    steps. Run A and run C go through uninterrupted; run B fails at step 6,
+    after step 6's checkpoint committed, and resumes from it. Gate: if A and
+    C end bit-equal, B must equal A bit for bit; else B's worst per-leaf
+    distance from A may be at most 2x C's (the card's index_add_ scatters
+    sum in atomic order). The gate must reject a resume from a checkpoint
+    whose dropout generator state, or data iterator state, is left at its
+    fresh value (edited into copies of B's checkpoint)."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+    from repro_torch.common import map_leaves
+
+    root = build / "ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--arch", RESUME["arch"], "--steps", str(RESUME["steps"]), "--batch",
+              str(RESUME["batch"]), "--seq", str(RESUME["seq"]), "--ckpt-every",
+              str(RESUME["every"]), "--seed", str(seed), "--device", dev.type]
+    half = RESUME["every"]
+
+    def run(name, *extra):
+        """The trainer's final state (params, moments, XL memories) and its
+        printed output."""
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            out = train_cli.main(common + ["--ckpt-dir", str(root / name), *extra])
+        state, leaves = out["state"], {}
+        map_leaves({"params": state["params"], "mu": state["opt"].mu,
+                    "nu": state["opt"].nu, "mems": state.get("mems", {})},
+                   lambda path, t: leaves.setdefault("/".join(map(str, path)), t.detach()))
+        return leaves, out, text.getvalue()
+
+    def distance(x, y):
+        """(every leaf bit-equal, worst per-leaf ||x - y|| / ||y||, its leaf)."""
+        same = all(same_bits(x[k], y[k]) for k in y)
+        worst = max(((torch.linalg.norm((x[k] - y[k]).float())
+                      / torch.linalg.norm(y[k].float()).clamp_min(1e-30)).item(), k)
+                     for k in y)
+        return same, worst[0], worst[1]
+
+    a, out_a, _ = run("a")
+    print(f"[E] run A: {RESUME['steps']} steps uninterrupted, final loss "
+          f"{out_a['losses'][-1]:.6f}, {len(a)} state leaves", flush=True)
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            train_cli.main(common + ["--ckpt-dir", str(root / "b"), "--fail-at-step",
+                                     str(half)])
+        fail("run B did not fail at its injected step")
+    except RuntimeError as e:
+        print(f"[E] run B failed as injected: {e}")
+    committed = sorted(p.name for p in (root / "b").glob("step_*")
+                       if (p / "COMMITTED").exists())
+    print(f"[E] run B's committed checkpoints after the failure: {committed}")
+    if committed != [f"step_{half}"]:
+        fail(f"run B left {committed}, not step {half}'s checkpoint alone")
+    for name, edit in (("drop_rng", "rng"), ("drop_data", "data")):
+        shutil.copytree(root / "b", root / name)
+        _reset_checkpoint(root / name / f"step_{half}", edit, seed, dev)
+    b, out_b, printed = run("b", "--resume")
+    if f"[resume] restored step {half}" not in printed:
+        fail(f"the resumed run B did not print '[resume] restored step {half}'")
+    print(f"[E] run B resumed: '[resume] restored step {half}', final loss "
+          f"{out_b['losses'][-1]:.6f}")
+    c, out_c, _ = run("c")
+    print(f"[E] run C: uninterrupted again, final loss {out_c['losses'][-1]:.6f}")
+
+    c_same, c_worst, c_leaf = distance(c, a)
+
+    def gate(x):
+        same, worst, leaf = distance(x, a)
+        ok = same if c_same else worst <= 2 * c_worst
+        return ok, same, worst, leaf
+
+    print(f"[E] C against A: bit-equal {c_same}, worst per-leaf relative distance "
+          f"{c_worst:.3g} at {c_leaf}")
+    out = {"c_vs_a": {"bit_equal": c_same, "worst": c_worst, "leaf": c_leaf},
+           "losses": {"a": out_a["losses"], "b": out_b["losses"], "c": out_c["losses"]}}
+    limit = "bit-equal" if c_same else f"<= 2 x {c_worst:.3g}"
+    ok, same, worst, leaf = gate(b)
+    print(f"[E] B (failed at {half}, resumed) against A: bit-equal {same}, worst "
+          f"{worst:.3g} at {leaf} (gate: {limit}) {'ok' if ok else 'BAD'}")
+    out["b_vs_a"] = {"bit_equal": same, "worst": worst, "leaf": leaf, "ok": ok}
+    if not ok:
+        fail("the resumed run strays from the uninterrupted one")
+    del b
+    for name, what in (("drop_rng", "the dropout generator's state"),
+                       ("drop_data", "the data iterator's state")):
+        x, _, printed = run(name, "--resume")
+        bad_ok, same, worst, leaf = gate(x)
+        print(f"[E] faulty resume, {what} left fresh: bit-equal {same}, worst {worst:.3g} "
+              f"at {leaf}: {'PASSED, the gate is too loose' if bad_ok else 'rejected'}")
+        out[name] = {"bit_equal": same, "worst": worst, "leaf": leaf, "rejected": not bad_ok}
+        if bad_ok or f"[resume] restored step {half}" not in printed:
+            fail(f"the resume gate let a resume without {what} through")
+        del x
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _reset_checkpoint(path, what, seed, dev):
+    """Leave one state of a committed checkpoint at the value a fresh run
+    starts from, as a resume that does not restore it would: the dropout
+    generator (``rng``, seeded ``seed + 1``) or the data iterator (step 0)."""
+    import numpy as np
+    import torch
+
+    meta = json.loads((path / "meta.json").read_text())
+    if what == "data":
+        meta["extra"]["data"]["step"] = 0
+        (path / "meta.json").write_text(json.dumps(meta))
+        return
+    with np.load(path / "arrays.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    fresh = torch.Generator(device=dev).manual_seed(seed + 1).get_state().numpy()
+    key = f"arr_{meta['keys'].index('rng')}"
+    if arrays[key].shape != fresh.shape or np.array_equal(arrays[key], fresh):
+        fail("the checkpoint's generator state is not a moved generator's")
+    arrays[key] = fresh
+    np.savez(path / "arrays.npz", **arrays)
 
 
 def _long_prompt_slice(seed, dev, gen, K, K7, results):
@@ -1297,10 +1676,11 @@ def _profile_prefill_chunk(lm, params, dev, start, chunk, pool, ps, rng, K):
     return {"start": start, "chunk_ms": chunk_ms} | prof
 
 
-def _train_main_path(tag, argv, want, K, train_cli, label=""):
+def _train_main_path(tag, argv, want, K, train_cli, label="", eval_batches=0):
     """Run the trainer in process with every launch count at 0 just before;
     the loss must be finite and fall, and every step must launch exactly
-    ``want``. Returns the run's numbers."""
+    ``want``. Returns the run's numbers (with ``eval_batches``, the eval
+    step's losses and cross-entropies on that many held-out batches)."""
     import numpy as np
     import torch
 
@@ -1309,7 +1689,7 @@ def _train_main_path(tag, argv, want, K, train_cli, label=""):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    out = train_cli.main(argv)
+    out = train_cli.main(argv, eval_batches=eval_batches)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -1331,7 +1711,8 @@ def _train_main_path(tag, argv, want, K, train_cli, label=""):
             "step_ms_min": 1e3 * min(steady), "step_ms_max": 1e3 * max(steady),
             "tokens_per_s": out["tokens_per_step"] / step_s, "max_memory_allocated": peak,
             "launches": launches, "launches_per_step": out["launches"][-1],
-            "n_params": out["n_params"], "first5": first, "last5": last}
+            "n_params": out["n_params"], "first5": first, "last5": last,
+            "eval_losses": out.get("eval_losses"), "eval_ce": out.get("eval_ce")}
 
 
 def _print_run(tag, run):
@@ -1341,16 +1722,17 @@ def _print_run(tag, run):
           f"{run['max_memory_allocated'] / 2**30:.2f} GiB")
 
 
-def _three_steps_fn(batches, opt, seed, dev):
+def _three_steps_fn(batches, opt, seed, dev, batch=TRAIN["batch"]):
     """``three_steps(lm)``: the gradients of the first batch, then 3 train
-    steps from the same initial state; returns (grads by leaf path, losses)."""
+    steps from the same initial state (XL memories for ``batch`` rows);
+    returns (grads by leaf path, losses)."""
     import torch
     from repro_torch.common import map_leaves
     from repro_torch.runtime import init_train_state, make_train_step
 
     def three_steps(lm):
         state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
-                                 use_mems=True, batch=TRAIN["batch"], device=dev)
+                                 use_mems=True, batch=batch, device=dev)
         loss, _ = lm.loss(state["params"], batches[0], train=True,
                           gen=torch.Generator(device=dev).manual_seed(seed + 1),
                           mems=state["mems"])
@@ -1376,7 +1758,92 @@ def _compare(ga, gb):
     return errs[-1][0], "/".join(map(str, errs[-1][1])), errs[len(errs) // 2][0]
 
 
-def _step_gates(tag, cfg, rung, three_steps, K, ops, routing, cross_rung=None):
+def _kernels_and_plain(rung, lm, three_steps, K, ops, routing, fault=None):
+    """``three_steps(lm)`` on ``rung``'s kernels (with ``fault`` planted,
+    see ``planted_fault``), then on the plain versions replaying the
+    kernels' expert choices: (choices, kernels' (grads, losses), plain
+    versions' (grads, losses), the kernels' launches)."""
+    choices = []
+    K.reset_launch_counts()
+    with pinned_impl(ops, rung), pinned_routing(routing, choices, replay=False), \
+            planted_fault(K, fault):
+        kernels = three_steps(lm)
+    launches = dict(K.LAUNCHES)
+    with pinned_impl(ops, rung), plain_kernels(K), \
+            pinned_routing(routing, choices, replay=True):
+        plain = three_steps(lm)
+    return choices, kernels, plain, launches
+
+
+def _against_f32(rung, variant, choices, gk, gp, three_steps, K, ops, routing):
+    """(kernels', bf16 plain versions') distance from float32 plain versions
+    on the same expert choices, and the float32 losses."""
+    from repro_torch.models import build_model
+    with pinned_impl(ops, rung), plain_kernels(K), \
+            pinned_routing(routing, choices, replay=True):
+        gf, lf = three_steps(build_model(variant.override(dtype="float32")))
+    return _compare(gk, gf), _compare(gp, gf), lf
+
+
+def _depth2_verdict(tag, label, rung, variant, lm, choices, gk, gp, worst, loss_err,
+                    three_steps, K, ops, routing):
+    """Phase B's rule for a bf16 step at depth 2: every leaf and loss within
+    GRAD_TOL of the plain versions (the fixed gate), else, where the losses
+    pass but the worst leaf does not, the yardstick: the kernels' gradients
+    no further from float32 plain versions than YARDSTICK times the bf16
+    plain versions' (cuBLAS), worst leaf and median alike. At
+    wt103-262m-moe the fixed gate's worst leaf, layer 0's XL ``w_r``, sits
+    at the edge of bf16's noise: its bf16 gradient is about 4x GRAD_TOL
+    from float32 for the plain versions and the kernels alike. The
+    yardstick is read in every call, so that planted faults show that it
+    alone rejects them. Returns (passed, record)."""
+    tol = GRAD_TOL[variant.dtype]
+    with pinned_impl(ops, rung), plain_kernels(K), \
+            pinned_routing(routing, choices, replay=True):
+        again = _compare(three_steps(lm)[0], gp)
+    kern, lib, lf = _against_f32(rung, variant, choices, gk, gp, three_steps, K, ops,
+                                 routing)
+    fixed = worst <= tol and loss_err <= tol
+    yard = kern[0] <= YARDSTICK * lib[0] and kern[2] <= YARDSTICK * lib[2]
+    passed = fixed or (loss_err <= tol and yard)
+    print(f"[{tag}] {label}: the plain versions' step run again against the first: "
+          f"worst relative error {again[0]:.3g} at {again[1]} (the comparison's own "
+          f"run-to-run noise); against float32 plain versions: kernels worst "
+          f"{kern[0]:.3g} at {kern[1]}, median {kern[2]:.3g}; bf16 plain versions (cuBLAS) "
+          f"worst {lib[0]:.3g} at {lib[1]}, median {lib[2]:.3g}; fixed gate "
+          f"{'ok' if fixed else 'missed'}, yardstick ({YARDSTICK}x the latter's worst and "
+          f"median) {'ok' if yard else 'missed'}: {'passed' if passed else 'NOT PASSED'}")
+    return passed, {"plain_twice": again, "kernels_vs_f32": kern, "plain_bf16_vs_f32": lib,
+                    "losses_f32": lf, "fixed_gate": fixed, "yardstick": yard,
+                    "passed": passed}
+
+
+def _depth2_gate(tag, variant, rung, three_steps, K, ops, routing, fault=None):
+    """``_depth2_verdict`` on a fresh model of ``variant``, with ``fault``
+    planted in the kernels' run. Returns (passed, record)."""
+    import numpy as np
+    from repro_torch.models import build_model
+
+    lm = build_model(variant)
+    choices, (gk, lk), (gp, lp), _ = _kernels_and_plain(rung, lm, three_steps, K, ops,
+                                                        routing, fault)
+    worst, leaf, median = _compare(gk, gp)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    if not all(np.isfinite(lk)):
+        loss_err = float("inf")
+    label = f"{variant.dtype}, depth {variant.n_layers}"
+    print(f"[{tag}] {rung}, {label}: worst relative error {worst:.3g} at {leaf}, median "
+          f"{median:.3g}; losses kernels {lk} plain {lp}, worst relative {loss_err:.3g} "
+          f"(tol {GRAD_TOL[variant.dtype]})")
+    passed, record = _depth2_verdict(tag, label, rung, variant, lm, choices, gk, gp, worst,
+                                     loss_err, three_steps, K, ops, routing)
+    record.update(worst_grad_rel=worst, worst_leaf=leaf, median=median,
+                  losses_kernels=lk, losses_plain=lp)
+    return passed, record
+
+
+def _step_gates(tag, cfg, rung, three_steps, K, ops, routing, cross_rung=None,
+                depth2_yardstick=False):
     """Phases 8 and 12: one full-width training step on the sort path's
     ``rung`` with the kernels, against the same step with the plain versions
     and the same expert choices.
@@ -1395,39 +1862,42 @@ def _step_gates(tag, cfg, rung, three_steps, K, ops, routing, cross_rung=None):
     yardstick (YARDSTICK). With ``cross_rung``, the float32 step also runs
     on that rung's kernels with the same choices, each gradient leaf and
     loss within GRAD_TOL["float32"] of ``rung``'s: two independent kernel
-    sets for one function."""
+    sets for one function. With ``depth2_yardstick`` (phase B), the bf16
+    depth-2 step is held to ``_depth2_verdict``'s rule instead."""
     import numpy as np
     import torch
     from repro_torch.models import build_model
 
     E = cfg.ffn.n_experts
     out = {}
-    for variant, mode in ((cfg.override(n_layers=2), "fixed"),
+    for variant, mode in ((cfg.override(n_layers=2),
+                           "fixed, else yardstick" if depth2_yardstick else "fixed"),
                           (cfg.override(dtype="float32"), "fixed"), (cfg, "yardstick")):
         label = f"{variant.dtype}, depth {variant.n_layers}"
         lm = build_model(variant)
-        choices = []
-        K.reset_launch_counts()
-        with pinned_impl(ops, rung), pinned_routing(routing, choices, replay=False):
-            gk, lk = three_steps(lm)
-        step_launches = dict(K.LAUNCHES)
-        with pinned_impl(ops, rung), plain_kernels(K), \
-                pinned_routing(routing, choices, replay=True):
-            gp, lp = three_steps(lm)
+        choices, (gk, lk), (gp, lp), step_launches = _kernels_and_plain(
+            rung, lm, three_steps, K, ops, routing)
         worst, leaf, median = _compare(gk, gp)
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
         tol = GRAD_TOL[variant.dtype]
         print(f"[{tag}] {rung}, {label}, full width, {len(gp)} gradient leaves, same "
               f"expert choices: worst relative error {worst:.3g} at {leaf}, median "
               f"{median:.3g}; losses kernels {lk} plain {lp}, worst relative "
-              f"{loss_err:.3g} ({f'tol {tol}' if mode == 'fixed' else 'not a check'}); "
+              f"{loss_err:.3g} ({f'tol {tol}' if mode != 'yardstick' else 'not a check'}); "
               f"launches {step_launches}")
         out[label] = {"worst_grad_rel": worst, "worst_leaf": leaf, "median": median,
                       "losses_kernels": lk, "losses_plain": lp,
                       "launches": step_launches}
         if not all(np.isfinite(lk)):
             fail(f"non-finite loss {lk}")
-        if mode == "fixed" and not (worst <= tol and loss_err <= tol):
+        if mode == "fixed, else yardstick":
+            ok, record = _depth2_verdict(tag, label, rung, variant, lm, choices, gk, gp,
+                                         worst, loss_err, three_steps, K, ops, routing)
+            out[label].update(record)
+            if not ok:
+                fail(f"{rung}, {label}: the kernels' training step disagrees with the "
+                     "plain versions' under the fixed gate and the yardstick alike")
+        elif mode != "yardstick" and not (worst <= tol and loss_err <= tol):
             fail(f"{rung}, {label}: the kernels' training step disagrees with the "
                  "plain versions'")
         if cross_rung and variant.dtype == "float32":
@@ -1448,10 +1918,8 @@ def _step_gates(tag, cfg, rung, three_steps, K, ops, routing, cross_rung=None):
                      "disagree")
             del gx
         if mode == "yardstick":
-            with pinned_impl(ops, rung), plain_kernels(K), \
-                    pinned_routing(routing, choices, replay=True):
-                gf, lf = three_steps(build_model(variant.override(dtype="float32")))
-            kern, lib = _compare(gk, gf), _compare(gp, gf)
+            kern, lib, lf = _against_f32(rung, variant, choices, gk, gp, three_steps,
+                                         K, ops, routing)
             print(f"[{tag}] {label}, same expert choices, against float32 plain "
                   f"versions: kernels worst {kern[0]:.3g} at {kern[1]}, median "
                   f"{kern[2]:.3g}; bf16 plain versions (cuBLAS) worst {lib[0]:.3g} at "
@@ -1461,7 +1929,6 @@ def _step_gates(tag, cfg, rung, three_steps, K, ops, routing, cross_rung=None):
             if not (kern[0] <= YARDSTICK * lib[0] and kern[2] <= YARDSTICK * lib[2]):
                 fail(f"{label}: the kernels' gradients stray further from float32 than "
                      f"{YARDSTICK}x the bf16 plain versions'")
-            del gf
             load = [torch.bincount(c.reshape(-1), minlength=E).max().item() * E / c.numel()
                     for c in choices[:variant.n_layers]]
             print(f"[{tag}] {label}: rows of the busiest expert over the mean, layer by "
@@ -1481,7 +1948,8 @@ def _profile_train_step(tag, lm, state, batch, step, dev, K, ops):
     Fails unless the profile holds exactly one device kernel of K1, K2, K3,
     K4 and K5 per call of its wrapper in the step (which also shows that
     the profile names K2 and K4, one template's instances, apart). Returns
-    the profile and the plan of the step's first MoE call (layer 0)."""
+    the profile and the plan of the step's first MoE call (layer 0), None
+    for a model without one."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1507,7 +1975,7 @@ def _profile_train_step(tag, lm, state, batch, step, dev, K, ops):
         if kernels != calls:
             fail(f"{label} ran {kernels} device kernels for {calls} wrapper calls")
     prof["wrapper_calls"] = dict(K.LAUNCHES)
-    return prof, plans[0]
+    return prof, (plans[0] if plans else None)
 
 
 @contextmanager
@@ -1782,6 +2250,56 @@ def pinned_routing(routing, choices: list, replay: bool):
         yield
     finally:
         routing.top_k = orig
+
+
+@contextmanager
+def planted_fault(K, fault):
+    """Replace, for the block, one kernel wrapper by the kernel run on inputs
+    that make it compute a known fault's output (phases 3 and 7 hold the
+    kernels' own gates against the same faults): "K2 gate rows exchanged"
+    applies row r + 8's gate to row r and r's to r + 8 in every 16-row
+    group; "K4 stage dropped" leaves out the middle 64-deep stage of K.
+    ``None`` plants nothing."""
+    if fault is None:
+        yield
+        return
+    name = {"K2 gate rows exchanged": "fused_w2", "K4 stage dropped": "cvmm"}[fault]
+    real = getattr(K, name)
+
+    def swapped_gates(u, tile_expert, w, gate):
+        return real(u, tile_expert, w, gate.reshape(-1, 2, 8).flip(1).reshape(-1))
+
+    def dropped_stage(x, tile_expert, w):
+        lo = x.shape[1] // 128 * 64
+        x = x.clone()
+        x[:, lo:lo + 64] = 0
+        return real(x, tile_expert, w)
+
+    setattr(K, name, swapped_gates if name == "fused_w2" else dropped_stage)
+    try:
+        yield
+    finally:
+        setattr(K, name, real)
+
+
+@contextmanager
+def deterministic_algorithms(tag):
+    """PyTorch's deterministic algorithms (``index_add_`` and the other
+    scatters in a fixed order) for the block; prints which operations warned
+    that they have none and stayed as they are."""
+    import warnings
+
+    import torch
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split(" does not have")[0] for w in seen
+                  if "deterministic" in str(w.message)})
+    print(f"[{tag}] under deterministic algorithms; without one: {ops or 'none'}")
 
 
 @contextmanager

@@ -1,7 +1,8 @@
 """The architectures the port runs, and ``reduced()`` smoke variants: a
 copy of the reference's ``configs/archs.py`` entries. granite-moe is the
-serving slice's model; the paper's WikiText-103 configs (Tab. 8/9) are the
-training slice's."""
+serving slice's model; the paper's six configs (Tab. 8/9), its
+parameter-equal dense/sigma-MoE pairs on WikiText-103 (47M, 262M) and
+enwik8 (41M), are the training slice's."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -62,6 +63,33 @@ def wt103_small_moe() -> ModelConfig:
     base = wt103_small_dense()
     return base.with_ffn(moe_ffn(16, 128, 4, reg_gamma=1e-3, reg_kind="entropy",
                                  dispatch="sort")).override(name="wt103-47m-moe")
+
+
+@register("wt103-262m-dense")
+def wt103_big_dense() -> ModelConfig:
+    return _paper_base(1024, 4110, 18, 16, 64, 512, 8000).override(
+        name="wt103-262m-dense", dropout=0.2)
+
+
+@register("wt103-262m-moe")
+def wt103_big_moe() -> ModelConfig:
+    base = wt103_big_dense()
+    return base.with_ffn(moe_ffn(32, 128, 4, expert_dropout=0.2, reg_gamma=1e-3,
+                                 reg_kind="entropy", dispatch="sort")).override(
+        name="wt103-262m-moe")
+
+
+@register("enwik8-41m-dense")
+def enwik8_dense() -> ModelConfig:
+    return _paper_base(512, 2053, 12, 8, 64, 512, 256).override(name="enwik8-41m-dense")
+
+
+@register("enwik8-41m-moe")
+def enwik8_moe() -> ModelConfig:
+    base = enwik8_dense()
+    return base.with_ffn(moe_ffn(16, 128, 4, expert_dropout=0.05, reg_gamma=1e-4,
+                                 reg_kind="entropy", dispatch="sort")).override(
+        name="enwik8-41m-moe")
 
 
 def reduced(name: str) -> ModelConfig:

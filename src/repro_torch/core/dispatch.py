@@ -37,6 +37,13 @@ from ..kernels import ops as kops
 from .routing import SelectionInfo
 
 
+def base_aux(device=None) -> Dict[str, torch.Tensor]:
+    """The uniform aux contract: every FFN kind returns at least these, as
+    float32 scalars on ``device``."""
+    return {"moe_reg": torch.zeros((), dtype=torch.float32, device=device),
+            "moe_dropped": torch.zeros((), dtype=torch.float32, device=device)}
+
+
 def resolve_impl(cfg: FFNConfig, device) -> str:
     """Per-layer impl knob: cfg.impl, with "auto" deferring to the pinned or
     the device's default rung (``ops.default_impl``)."""

@@ -1,29 +1,76 @@
-"""FFN entry of a block (the reference's ``models/ffn.py``): the port
-runs sigma-MoE; the other kinds come with their slices."""
+"""FFN registry (the reference's ``models/ffn.py``): wires the paper's
+approximators (``core/``) into model blocks.
+
+``FFN_REGISTRY`` maps each kind to one ``FFNEntry(init, apply)`` with a
+uniform contract:
+
+    init(gen, d_model, cfg, n_layers, dtype, ep_degree, device) -> params
+    apply(params, x, cfg, *, gen, train) -> (y, aux)
+
+where ``aux`` always carries ``moe_reg`` and ``moe_dropped``
+(``core/dispatch.base_aux``), so the stack sums aux alike for every kind.
+"dense", "glu", "none" and "sigma_moe" run; the reference's other kinds are
+registered names whose init and apply raise and name their ROADMAP item.
+"""
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..configs.base import FFNConfig
+from ..core.dispatch import base_aux
 from ..core.moe import apply_moe, init_moe
+from ..core.topk_mlp import apply_dense, init_dense
+
+MOE_KINDS = ("sigma_moe", "switch", "sbase", "noisy_topk")
 
 
-def _check(cfg: FFNConfig) -> None:
-    if cfg.kind != "sigma_moe":
-        raise NotImplementedError(f"ffn kind {cfg.kind!r} is not ported yet")
+class FFNEntry(NamedTuple):
+    """One approximator: paired (init, apply) with the uniform contract."""
+    init: Callable[..., Dict]
+    apply: Callable[..., Tuple[torch.Tensor, Dict]]
+
+
+def _init_none(gen, d_model: int, cfg: FFNConfig, n_layers: int,
+               dtype=torch.float32, ep_degree: int = 0, device="cuda") -> Dict:
+    return {}
+
+
+def _apply_none(params: Dict, x: torch.Tensor, cfg: FFNConfig, *,
+                gen: Optional[torch.Generator] = None,
+                train: bool = False) -> Tuple[torch.Tensor, Dict]:
+    return torch.zeros_like(x), base_aux(x.device)
+
+
+def _not_ported(item: str) -> FFNEntry:
+    def fail(*args, **kwargs):
+        cfg = args[2]
+        raise NotImplementedError(
+            f"ffn kind {cfg.kind!r} is not ported yet (ROADMAP queue 1 {item})")
+    return FFNEntry(fail, fail)
+
+
+FFN_REGISTRY: Dict[str, FFNEntry] = {
+    "dense": FFNEntry(init_dense, apply_dense),
+    "glu": FFNEntry(init_dense, apply_dense),
+    "topk": _not_ported("item 4, weighted_value_sum"),
+    "pkm": _not_ported("item 4, PKM"),
+    "none": FFNEntry(_init_none, _apply_none),
+    "sigma_moe": FFNEntry(init_moe, apply_moe),
+    **{kind: _not_ported("item 1, the other MoE kinds and selectors")
+       for kind in MOE_KINDS[1:]},
+}
 
 
 def init_ffn(gen: torch.Generator, d_model: int, cfg: FFNConfig,
              n_layers: int, dtype=torch.float32, ep_degree: int = 0,
              device="cuda") -> Dict:
-    _check(cfg)
-    return init_moe(gen, d_model, cfg, n_layers, dtype, ep_degree, device)
+    return FFN_REGISTRY[cfg.kind].init(gen, d_model, cfg, n_layers, dtype,
+                                       ep_degree, device)
 
 
 def apply_ffn(params: Dict, x: torch.Tensor, cfg: FFNConfig, *,
               gen: Optional[torch.Generator] = None,
               train: bool = False) -> Tuple[torch.Tensor, Dict]:
-    _check(cfg)
-    return apply_moe(params, x, cfg, gen=gen, train=train)
+    return FFN_REGISTRY[cfg.kind].apply(params, x, cfg, gen=gen, train=train)

@@ -1,11 +1,13 @@
-"""The train step (the reference's ``runtime/steps.py``, single device):
-loss and gradients, global-norm clipping, the learning-rate schedule and
-AdamW, with Transformer-XL memories carried from step to step.
+"""The train and eval steps (the reference's ``runtime/steps.py``, single
+device): loss and gradients, global-norm clipping, the learning-rate
+schedule and AdamW, with Transformer-XL memories carried from step to step;
+the eval step's loss without gradients, dropout or memories; and the
+prefill and decode wrappers of the serving entry points.
 
 The state is one dict: {"params", "opt", and with ``xl_memory`` "mems"}.
 Parameters are float32 master leaves that require grad; the step updates
 them in place. Gradient accumulation, gradient compression and the pod
-tier of the reference are not ported yet.
+tier of the reference are not ported yet (ROADMAP queue 1 items 1 and 8).
 """
 from __future__ import annotations
 
@@ -68,3 +70,27 @@ def make_train_step(model: LM, opt_cfg: OptimizerConfig):
         return new_state, metrics
 
     return train_step
+
+
+def make_eval_step(model: LM):
+    """Returns ``eval_step(params, batch) -> (loss, metrics)``: the loss in
+    inference mode (no dropout, no XL memories), without gradients."""
+    def eval_step(params, batch):
+        with torch.no_grad():
+            return model.loss(params, batch, gen=None, train=False)
+    return eval_step
+
+
+def make_prefill_step(model: LM, max_len: int):
+    """``LM.prefill`` under the reference's step name (``max_len`` is its
+    signature's, unused there too)."""
+    def prefill_step(params, tokens, cache):
+        return model.prefill(params, tokens, cache)
+    return prefill_step
+
+
+def make_decode_step(model: LM):
+    """``LM.decode_step`` under the reference's step name."""
+    def decode_step(params, cache, token, pos):
+        return model.decode_step(params, cache, token, pos)
+    return decode_step
