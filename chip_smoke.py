@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero before the result line). 1-6 are the
 serving slice, 7-10 the training slice on the fused rung, 11-14 training on
 the unfused rung, 15-18 K7 and the long-prompt serving run, A-E the paper's
-dense/sigma-MoE pairs, their eval step and checkpoint/resume:
+dense/sigma-MoE pairs, their eval step and checkpoint/resume, F-H the
+paper's PKM and top-K MLP on K6, forward and backward:
 
 1. the card: torch's device name and nvidia-smi's name and power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
@@ -128,8 +129,33 @@ E. checkpoint and resume: wt103-47m-moe at full width (batch 32 x 256, 12
    if C does, else stay within 2x C's worst per-leaf distance from A; the
    gate must reject resumes with the dropout generator's or the data
    iterator's state left fresh;
+F. K6 at the swapped FFNs' shapes (wt103-47m-dense with ``--ffn pkm``: 4
+   heads x top-32 of 2,025 values for 32 x 257 tokens, 1,052,672
+   selections; ``--ffn topk``: top-256 of 2,053 W2 rows, 2,105,344), on
+   the dedup plans built from one random layer's real selections, and on
+   PKM's one-slot-a-selection ``GatherPlan`` with the weight in K6's
+   epilogue: exactly its plain version in bf16 and float32, the same bits
+   on a second call; the two autograd Functions (forward, dvalues,
+   dweights), kernels against plain versions within phase 3's
+   tolerances; K6 timed device alone beside its bound and
+   ``index_select``;
+G. one full-width training step of each swap (depth 16, bf16), kernels
+   against plain versions on the same selections under deterministic
+   algorithms: the losses and every gradient leaf equal bit for bit, and
+   the gate must reject a K6 that reads one row of each 128-row block from
+   its neighbour;
+H. the main path: ``python -m repro_torch.launch.train --arch
+   wt103-47m-dense --ffn pkm`` (and ``--ffn topk``, and without ``--ffn``
+   as the dense baseline) ``--steps 30 --batch 32 --seq 256`` in process:
+   finite, falling loss, exactly 2 K6 a swapped layer every step and no
+   K1-K5, the eval step on 4 held-out batches (seed + 1,000) below step 0's
+   loss with 1 K6 a layer, step time, tokens/s, peak memory, a profile
+   with one K6 device kernel per wrapper call, parameter counts equal to
+   the reference's, and for PKM the share of the values the last batch
+   selected (``collect_stats``; no gate);
 19. one ``{"kernels": [...]}`` JSON line (with A's wt103-262m-moe rows of
-    K1, K2, K3 and K4, their launches from C), then the device line last.
+    K1, K2, K3 and K4, their launches from C, and K6's rows at F's shapes,
+    their launches from H), then the device line last.
 
 With ``--out``, the full results (every phase's numbers and the ptxas
 reports) are also written there as JSON.
@@ -178,9 +204,18 @@ PAIR = dict(batch=16, seq=512, steps=30, eval_batches=4)
 # published widths and depths, at batch 16 x 512 (512 tokens a segment, the
 # configs' XL context), trained phase 9's 30 steps from one seed.
 PAPER_PARAMS = {"wt103-262m-dense": 262_772_736, "wt103-262m-moe": 262_846_464,
-                "enwik8-41m-dense": 41_518_080, "enwik8-41m-moe": 41_554_944}
+                "enwik8-41m-dense": 41_518_080, "enwik8-41m-moe": 41_554_944,
+                "wt103-47m-dense": 47_370_872, "wt103-47m-dense --ffn pkm": 34_839_480,
+                "wt103-47m-dense --ffn topk": 47_370_872}
 # The reference's parameter counts (jax.eval_shape of its LM.init;
-# tests/test_torch_paper_configs.py holds the port's count to them).
+# tests/test_torch_paper_configs.py and, for the swaps,
+# tests/test_torch_ffn_swap.py hold the port's counts to them).
+SWAP = dict(arch="wt103-47m-dense", kinds=("pkm", "topk"), batch=32, seq=256, steps=30,
+            eval_batches=4)
+# Phases F-H: the paper's top-K MLP and PKM (Sec. 3.1, 3.2) swapped into the
+# 47M dense baseline by the reference's --ffn rule (PKM: 45**2 = 2,025 values,
+# 4 heads, top-32; top-K: K 256 of d_ff 2,053), at phase 9's batch; each
+# layer call sees 32 x 257 tokens.
 RESUME = dict(arch="wt103-47m-moe", batch=32, seq=256, steps=12, every=6)
 # Phase E: phase 9's model and batch, checkpointed every 6 of 12 steps.
 LONG = dict(arch="granite-moe-3b-a800m", requests=32, prompt=3500, max_new=32,
@@ -432,6 +467,9 @@ def main() -> None:
     # ------------------------------- A-E. the paper's dense/sigma-MoE pairs
     pair_rows = _paper_pair_slice(args.seed, dev, gen, K, results)
 
+    # ------------------------- F-H. PKM and the top-K MLP on K6, trained
+    swap_rows = _swap_slice(args.seed, dev, gen, K, results)
+
     # ------------------------------------------------------------ 19. report
     def row(kernel, shape, source, replaces):
         t = next(t for t in timings if t["kernel"] == kernel and t["shape"] == shape
@@ -465,7 +503,7 @@ def main() -> None:
     line = {"kernels": [
         train["rows"]["fused_w1"], train["rows"]["fused_w2"],
         train["rows"]["dw_streamed"], k4, train["rows"]["cvmm_dw"], k6, k7_row,
-        *pair_rows]}
+        *pair_rows, *swap_rows]}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1, default=str))
@@ -1155,6 +1193,330 @@ def _paper_pair_slice(seed, dev, gen, K, results):
     return rows
 
 
+def _swap_slice(seed, dev, gen, K, results):
+    """Phases F-H: the paper's PKM and top-K MLP, swapped into
+    wt103-47m-dense by ``--ffn``, with their value sums on K6 forward and
+    backward. F: K6 and the two autograd Functions at the swaps' shapes; G:
+    one full-width step, kernels against plain versions; H: the trainer's
+    main path. Returns the kernels line's K6 rows at F's shapes, with their
+    launches from H."""
+    import torch
+    from repro_torch.core import routing
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    layers, timings = _phase_f(dev, gen, K, ops, results)
+    torch.cuda.empty_cache()
+    print(f"[F] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    results["phaseG"] = _phase_g(seed, dev, K, ops, routing)
+    torch.cuda.empty_cache()
+    print(f"[G] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    runs = results["phaseH"] = _phase_h(seed, dev, K, ops)
+    print(f"[H] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    rows = []
+    for kind in SWAP["kinds"]:
+        t = next(t for t in timings if t["layer"] == kind and t["case"] == "dedup")
+        rows.append({"name": "gather_rows", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/gather_rows.cu",
+                     "replaces": "src/repro/kernels/cvmm.py:621",
+                     "launches": runs[kind]["launches"]["gather_rows"],
+                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "device_ms": t["device_ms"],
+                     "library_device_ms": t["library_device_ms"], "shape": t["shape"],
+                     "dtype": "bfloat16",
+                     "path": f"training, {SWAP['arch']} --ffn {kind}, "
+                             "gathered_weighted_sum_dedup"})
+    return rows
+
+
+def _swap_layer(kind, dev, gen):
+    """One random layer of ``SWAP["arch"]`` with its FFN swapped to ``kind``
+    at the trainer's tokens a layer call, in bf16: (its value table, its
+    selection of the table's rows)."""
+    import torch
+    from repro_torch.core import pkm, routing
+    from repro_torch.core.dispatch import Selection
+    from repro_torch.models import build_model, ffn
+
+    cfg = build_model(SWAP["arch"], ffn=kind).cfg
+    f = cfg.ffn
+    params = {k: v.to(torch.bfloat16) for k, v in ffn.init_ffn(
+        gen, cfg.d_model, f, cfg.n_layers, device=dev).items()}
+    x = torch.randn((SWAP["batch"] * (SWAP["seq"] + 1), cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    if kind == "pkm":
+        return params["values"], pkm.pkm_select(params, x, f)
+    vals, idx = routing.top_k(torch.relu(x @ params["w1"]), f.topk_k)
+    return params["w2"], Selection(idx=idx, weights=vals, n_items=f.d_ff)
+
+
+def _phase_f(dev, gen, K, ops, results):
+    """Phase F: K6 against its plain version on the swaps' dedup plans (and
+    PKM's weighted GatherPlan), exactly and the same bits twice, in bf16 and
+    float32; the autograd Functions' forward and gradients, kernels against
+    plain versions within phase 3's tolerances; K6 timed as phase 6 does.
+    Returns (the layers' numbers, the timings)."""
+    import torch
+
+    layers, errs, timings = {}, {}, []
+    for kind in SWAP["kinds"]:
+        table, sel = _swap_layer(kind, dev, gen)
+        n, n_rows = sel.idx.shape[0], table.shape[0]
+        plan = ops.make_dedup_gather_plan(sel.idx, sel.weights, n_rows)
+        gplan = ops.make_gather_plan(sel.idx, sel.weights, n_rows) if kind == "pkm" else None
+        n_unique = int((plan.row_src < n_rows).sum())
+        layers[kind] = {"tokens": n, "selections": sel.idx.numel(), "table_rows": n_rows,
+                        "unique_rows": n_unique, "u_pad": plan.u_pad}
+        print(f"[F] --ffn {kind}: {n} tokens x {sel.idx.shape[1]} = {sel.idx.numel():,} "
+              f"selections of {n_rows} rows of {table.shape[1]}; dedup plan: {n_unique} "
+              f"rows selected, U_pad {plan.u_pad}"
+              + (f"; GatherPlan M_pad {gplan.m_pad:,}" if gplan is not None else ""))
+        cases = [("dedup", plan.row_src, None)]
+        if gplan is not None:
+            cases.append(("GatherPlan weighted", gplan.row_src,
+                          gplan.weight_tiles.reshape(-1)))
+        for dt in (torch.bfloat16, torch.float32):
+            dn = str(dt).split(".")[1]
+            vp = ops._pad_lane(table.to(dt), 1)
+            for case, rs, wt in cases:
+                got, again = K.gather_rows(vp, rs, wt), K.gather_rows(vp, rs, wt)
+                want = K.gather_rows_plain(vp, rs, wt)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                exact, twice = same_bits(got, want), same_bits(got, again)
+                print(f"[F] gather_rows --ffn {kind} {case} into {rs.numel():,} rows of "
+                      f"{vp.shape[1]} {dn}: max_abs_err {err:.3g}, the plain version's bits "
+                      f"{exact}, same bits twice {twice} {'ok' if exact and twice else 'BAD'}")
+                if not exact:
+                    fail(f"gather_rows disagrees with gather_rows_plain (--ffn {kind} {case} {dn})")
+                if not twice:
+                    fail(f"gather_rows gave different bits on a second call (--ffn {kind} {case})")
+                errs[(kind, case, dn)] = err
+                del got, again, want
+        # the Functions, forward and both gradients, kernels against plain
+        cot = torch.randn((n, table.shape[1]), generator=gen, device=dev)
+        for dt in (torch.bfloat16, torch.float32):
+            dn = str(dt).split(".")[1]
+            for fn in ("gathered_weighted_sum_dedup",) + (
+                    ("gathered_weighted_sum",) if gplan is not None else ()):
+                def run():
+                    v = table.detach().to(dt).requires_grad_()
+                    w = sel.weights.detach().float().requires_grad_()
+                    if fn == "gathered_weighted_sum":
+                        y = ops.gathered_weighted_sum(
+                            v, ops.make_gather_plan(sel.idx, w, n_rows), n)
+                    else:
+                        y = ops.gathered_weighted_sum_dedup(
+                            v, ops.make_dedup_gather_plan(sel.idx, w, n_rows), n)
+                    (y.float() * cot).sum().backward()
+                    return y.detach(), v.grad, w.grad
+                before = K.LAUNCHES["gather_rows"]
+                got = run()
+                torch.cuda.synchronize()
+                launched = K.LAUNCHES["gather_rows"] - before
+                with plain_kernels(K):
+                    want = run()
+                for name, g, w in zip(("y", "dvalues", "dweights"), got, want):
+                    ok, err, rel, lim = close(g, w, TOL[dn], dn, ulps=False)
+                    print(f"[F] {fn} --ffn {kind} {name} {dn}: kernels vs plain max_abs_err "
+                          f"{err:.3g}, normwise {rel:.3g} ({lim}) {'ok' if ok else 'BAD'}")
+                    if not ok:
+                        fail(f"{fn} (--ffn {kind}) {name} disagrees with the plain versions "
+                             f"in {dn}")
+                    errs[(kind, fn, name, dn)] = err
+                print(f"[F] {fn} --ffn {kind} {dn}: {launched} K6 launches (1 forward, "
+                      "1 backward)")
+                if launched != 2:
+                    fail(f"{fn} launched K6 {launched} times for one forward and backward")
+                del got, want
+        # K6 timed at the main path's dtype, device alone beside its bound,
+        # its plain version and index_select (the weighted form has no
+        # single library call)
+        vp = ops._pad_lane(table.to(torch.bfloat16), 1)
+        vz = torch.cat([vp, vp.new_zeros((1, vp.shape[1]))])
+        row_bytes = vp.shape[1] * vp.element_size()
+        for case, rs, wt in cases:
+            nbytes = (n_unique + rs.numel()) * row_bytes + rs.numel() * 4 * (
+                1 if wt is None else 2)
+            lib = (lambda rs=rs: torch.index_select(vz, 0, rs)) if wt is None else None
+            timings.append({
+                "kernel": "gather_rows", "layer": kind, "case": case,
+                "shape": f"--ffn {kind} {case}: {n_unique} of {n_rows} rows of "
+                         f"{vp.shape[1]} into {rs.numel():,}",
+                "dtype": "bfloat16", "path": f"training, {SWAP['arch']} --ffn {kind}",
+                "ms": _time_ms(lambda: K.gather_rows(vp, rs, wt)),
+                "device_ms": _device_ms(lambda: K.gather_rows(vp, rs, wt)),
+                "plain_ms": _time_ms(lambda: K.gather_rows_plain(vp, rs, wt)),
+                "library_ms": _time_ms(lib) if lib else None,
+                "library_device_ms": _device_ms(lib) if lib else None,
+                "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+                "max_abs_err": errs[(kind, case, "bfloat16")]})
+        del table, sel, plan, gplan, cot, vp, vz
+    for t in timings:
+        lib = (f"index_select {t['library_ms']:.4f} ms ({t['library_device_ms']:.4f} device "
+               "alone)" if t["library_ms"] is not None else "no library call")
+        print(f"[F] {t['kernel']} {t['shape']} bf16: kernel {t['ms']:.4f} ms "
+              f"({t['device_ms']:.4f} device alone), plain {t['plain_ms']:.4f} ms, {lib}, "
+              f"bound {t['bound_ms']:.4f} ms (bytes)")
+    results["phaseF"] = {"layers": layers, "timings": timings,
+                         "errors": {" ".join(map(str, k)): v for k, v in errs.items()}}
+    return layers, timings
+
+
+def _phase_g(seed, dev, K, ops, routing):
+    """Phase G: one full-width training step of each swap (the gradients of
+    a first batch, then 3 train steps), kernels against plain versions on
+    the same selections under deterministic algorithms. K6 copies rows
+    exactly and nothing else differs, so the losses and every gradient leaf
+    must be equal bit for bit; the same gate must reject a planted K6
+    fault."""
+    import torch
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.data import DataIterator, make_dataset
+    from repro_torch.models import build_model
+
+    out = {}
+    fault = "K6 row read from its neighbour"
+    for kind in SWAP["kinds"]:
+        cfg = build_model(SWAP["arch"], ffn=kind).cfg
+        stream = DataIterator(make_dataset("synthetic", cfg.vocab_size), SWAP["batch"],
+                              SWAP["seq"] + 1, seed=seed)
+        batches = [{"tokens": torch.as_tensor(stream.next()["tokens"], device=dev)}
+                   for _ in range(3)]
+        three_steps = _three_steps_fn(batches, OptimizerConfig(total_steps=3), seed, dev,
+                                      batch=SWAP["batch"])
+        want = dict.fromkeys(K.LAUNCHES, 0) | {"gather_rows": 8 * cfg.n_layers}
+        with deterministic_algorithms(f"G --ffn {kind}"):
+            lm = build_model(cfg)
+            choices, (gk, lk), (gp, lp), launches = _kernels_and_plain(
+                "pallas_fused", lm, three_steps, K, ops, routing)
+            differ = [p for p in gp if not same_bits(gk[p], gp[p])]
+            worst, leaf, median = _compare(gk, gp)
+            print(f"[G] --ffn {kind}, {cfg.dtype}, depth {cfg.n_layers}, full width, "
+                  f"{len(gp)} gradient leaves, same selections: {len(differ)} leaves not "
+                  f"bit-equal, worst relative error {worst:.3g} at {leaf}; losses kernels "
+                  f"{lk} plain {lp}, equal {lk == lp}; launches {launches} (expected "
+                  f"{want}: 2 K6 a layer in each of 4 forward and backward passes)")
+            if launches != want:
+                fail(f"--ffn {kind}: the step launched {launches}, expected {want}")
+            if differ or lk != lp:
+                fail(f"--ffn {kind}: the kernels' step is not bit-equal to the plain "
+                     f"versions' ({len(differ)} leaves, e.g. {differ[:3]})")
+            with pinned_impl(ops, "pallas_fused"), \
+                    pinned_routing(routing, choices, replay=True), planted_fault(K, fault):
+                gf, lf = three_steps(lm)
+            bad = [p for p in gp if not same_bits(gf[p], gp[p])]
+            fworst = _compare(gf, gp)
+            caught = bool(bad) or lf != lp
+            print(f"[G] --ffn {kind}, planted fault ({fault}), same selections: "
+                  f"{len(bad)} leaves not bit-equal, worst relative error {fworst[0]:.3g} at "
+                  f"{fworst[1]}; losses {lf}: {'rejected' if caught else 'PASSED'}")
+            if not caught:
+                fail(f"phase G's gate let a planted K6 fault through (--ffn {kind})")
+        out[kind] = {"leaves": len(gp), "not_bit_equal": len(differ), "worst": worst,
+                     "losses_kernels": lk, "losses_plain": lp, "launches": launches,
+                     "fault": {"leaves_not_bit_equal": len(bad), "worst": fworst[0],
+                               "leaf": fworst[1], "losses": lf}}
+        del lm, gk, gp, gf, three_steps, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def _phase_h(seed, dev, K, ops):
+    """Phase H: the trainer's main path with ``--ffn pkm``, ``--ffn topk``
+    and without ``--ffn`` (the dense baseline), each 30 steps then the eval
+    step on 4 held-out batches, a profiled step, and for PKM the share of
+    the values the last batch selected. Returns the runs."""
+    import torch
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.data import DataIterator, make_dataset
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model, stack
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    runs = {}
+    for kind in ("dense",) + SWAP["kinds"]:
+        swap = [] if kind == "dense" else ["--ffn", kind]
+        key = SWAP["arch"] + (f" --ffn {kind}" if swap else "")
+        lm = build_model(SWAP["arch"], ffn=kind if swap else None)
+        layers = lm.cfg.n_layers
+        want = dict.fromkeys(K.LAUNCHES, 0) | ({"gather_rows": 2 * layers} if swap else {})
+        argv = ["--arch", SWAP["arch"], *swap, "--steps", str(SWAP["steps"]), "--batch",
+                str(SWAP["batch"]), "--seq", str(SWAP["seq"]), "--seed", str(seed),
+                "--device", dev.type]
+        run = _train_main_path("H", argv, want, K, train_cli,
+                               eval_batches=SWAP["eval_batches"], keep_state=True)
+        _print_run("H", run)
+        state = run.pop("state")
+        total = (SWAP["steps"] * 2 + SWAP["eval_batches"]) * layers if swap else 0
+        evals = run["eval_losses"]
+        print(f"[H] {key}: {run['n_params']:,} params (reference {PAPER_PARAMS[key]:,}); "
+              f"K6 launches {run['launches']['gather_rows']} (expected {total}: 2 a layer "
+              f"each step, 1 a layer each eval batch); eval loss on {len(evals)} held-out "
+              f"batches (seed + 1000) {[round(x, 4) for x in evals]}, step-0 training loss "
+              f"{run['losses'][0]:.4f}", flush=True)
+        if run["n_params"] != PAPER_PARAMS[key]:
+            fail(f"{key}: {run['n_params']} parameters, the reference has "
+                 f"{PAPER_PARAMS[key]}")
+        if run["launches"] != dict.fromkeys(K.LAUNCHES, 0) | {"gather_rows": total}:
+            fail(f"{key}: the run and its eval launched {run['launches']}")
+        if not all(math.isfinite(x) and x < run["losses"][0] for x in evals):
+            fail(f"{key}: eval losses {evals} not finite and below the step-0 training "
+                 f"loss {run['losses'][0]}")
+        stream = DataIterator(make_dataset("synthetic", lm.cfg.vocab_size), SWAP["batch"],
+                              SWAP["seq"] + 1, seed=seed)
+        for _ in range(SWAP["steps"] - 1):
+            stream.next()
+        last = torch.as_tensor(stream.next()["tokens"], device=dev)
+        if swap:
+            usage = []
+            apply_ffn = stack.apply_ffn
+
+            def with_stats(params, x, cfg, **kw):
+                y, aux = apply_ffn(params, x, cfg, collect_stats=True, **kw)
+                usage.append(aux.pop("usage"))
+                return y, aux
+
+            stack.apply_ffn = with_stats
+            try:
+                with torch.no_grad():
+                    lm.forward(state["params"], last)
+            finally:
+                stack.apply_ffn = apply_ffn
+            share = [float((u["counts"] > 0).float().mean()) for u in usage]
+            n_items = usage[0]["counts"].numel()
+            print(f"[H] {key}: share of the {n_items:,} "
+                  f"{'values' if kind == 'pkm' else 'W2 rows'} the last training batch "
+                  f"selected, layer by layer: {[round(x, 3) for x in share]}")
+            run["selected_share"] = share
+        del state
+        torch.cuda.empty_cache()
+        opt = OptimizerConfig(total_steps=SWAP["steps"])
+        pstate = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
+                                  use_mems=True, batch=SWAP["batch"], device=dev)
+        run["profile"], _ = _profile_train_step("H", lm, pstate, {"tokens": last},
+                                                make_train_step(lm, opt), dev, K, ops)
+        del lm, pstate
+        torch.cuda.empty_cache()
+        runs[kind] = run
+    dense = runs["dense"]
+    for kind in SWAP["kinds"]:
+        r = runs[kind]
+        print(f"[H] --ffn {kind} / dense: step {r['step_ms']:.2f} / {dense['step_ms']:.2f} ms "
+              f"= {r['step_ms'] / dense['step_ms']:.2f}x; peak memory "
+              f"{r['max_memory_allocated'] / 2**30:.2f} / "
+              f"{dense['max_memory_allocated'] / 2**30:.2f} GiB; last-5 loss "
+              f"{r['last5']:.4f} / {dense['last5']:.4f}")
+    return runs
+
+
 def _corpus_files():
     """The byte corpus's files, sorted: the Python sources under src/ and
     tests/ and the top-level Markdown files. The same list in a git checkout
@@ -1676,11 +2038,13 @@ def _profile_prefill_chunk(lm, params, dev, start, chunk, pool, ps, rng, K):
     return {"start": start, "chunk_ms": chunk_ms} | prof
 
 
-def _train_main_path(tag, argv, want, K, train_cli, label="", eval_batches=0):
+def _train_main_path(tag, argv, want, K, train_cli, label="", eval_batches=0,
+                     keep_state=False):
     """Run the trainer in process with every launch count at 0 just before;
     the loss must be finite and fall, and every step must launch exactly
     ``want``. Returns the run's numbers (with ``eval_batches``, the eval
-    step's losses and cross-entropies on that many held-out batches)."""
+    step's losses and cross-entropies on that many held-out batches; with
+    ``keep_state``, the final train state under "state")."""
     import numpy as np
     import torch
 
@@ -1712,7 +2076,8 @@ def _train_main_path(tag, argv, want, K, train_cli, label="", eval_batches=0):
             "tokens_per_s": out["tokens_per_step"] / step_s, "max_memory_allocated": peak,
             "launches": launches, "launches_per_step": out["launches"][-1],
             "n_params": out["n_params"], "first5": first, "last5": last,
-            "eval_losses": out.get("eval_losses"), "eval_ce": out.get("eval_ce")}
+            "eval_losses": out.get("eval_losses"), "eval_ce": out.get("eval_ce"),
+            **({"state": out["state"]} if keep_state else {})}
 
 
 def _print_run(tag, run):
@@ -1946,7 +2311,7 @@ def _step_gates(tag, cfg, rung, three_steps, K, ops, routing, cross_rung=None,
 def _profile_train_step(tag, lm, state, batch, step, dev, K, ops):
     """One full-width training step under torch.profiler (``_profile``).
     Fails unless the profile holds exactly one device kernel of K1, K2, K3,
-    K4 and K5 per call of its wrapper in the step (which also shows that
+    K4, K5 and K6 per call of its wrapper in the step (which also shows that
     the profile names K2 and K4, one template's instances, apart). Returns
     the profile and the plan of the step's first MoE call (layer 0), None
     for a model without one."""
@@ -1968,7 +2333,7 @@ def _profile_train_step(tag, lm, state, batch, step, dev, K, ops):
     prof = _profile(tag, "training step", run, top_n=10)
     for kernel, label in (("fused_w1", "K1 fused_w1"), ("fused_w2", "K2 fused_w2"),
                           ("dw_streamed", "K3 dw_streamed"), ("cvmm", "K4 cvmm"),
-                          ("cvmm_dw", "K5 cvmm_dw")):
+                          ("cvmm_dw", "K5 cvmm_dw"), ("gather_rows", "K6 gather_rows")):
         calls, kernels = K.LAUNCHES[kernel], prof["port_kernels"].get(label, (0, 0.0))[0]
         print(f"[{tag}] {label}: {calls} wrapper calls, {kernels} device kernels in the "
               "profiled step")
@@ -2258,12 +2623,14 @@ def planted_fault(K, fault):
     that make it compute a known fault's output (phases 3 and 7 hold the
     kernels' own gates against the same faults): "K2 gate rows exchanged"
     applies row r + 8's gate to row r and r's to r + 8 in every 16-row
-    group; "K4 stage dropped" leaves out the middle 64-deep stage of K.
-    ``None`` plants nothing."""
+    group; "K4 stage dropped" leaves out the middle 64-deep stage of K;
+    "K6 row read from its neighbour" copies row 6's source into row 5 of
+    every 128-row block. ``None`` plants nothing."""
     if fault is None:
         yield
         return
-    name = {"K2 gate rows exchanged": "fused_w2", "K4 stage dropped": "cvmm"}[fault]
+    name = {"K2 gate rows exchanged": "fused_w2", "K4 stage dropped": "cvmm",
+            "K6 row read from its neighbour": "gather_rows"}[fault]
     real = getattr(K, name)
 
     def swapped_gates(u, tile_expert, w, gate):
@@ -2275,7 +2642,13 @@ def planted_fault(K, fault):
         x[:, lo:lo + 64] = 0
         return real(x, tile_expert, w)
 
-    setattr(K, name, swapped_gates if name == "fused_w2" else dropped_stage)
+    def neighbour_row(x, row_src, weight=None):
+        rs = row_src.clone()
+        rs[5::128] = row_src[6::128]
+        return real(x, rs, weight)
+
+    setattr(K, name, {"fused_w2": swapped_gates, "cvmm": dropped_stage,
+                      "gather_rows": neighbour_row}[name])
     try:
         yield
     finally:

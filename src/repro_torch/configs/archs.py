@@ -115,6 +115,8 @@ def reduced(name: str) -> ModelConfig:
                             reg_gamma=f.reg_gamma, dispatch="sort")
     elif f.kind in ("dense", "glu"):
         kw["ffn"] = FFNConfig(kind=f.kind, d_ff=128, activation=f.activation)
+    elif f.kind == "pkm":
+        kw["ffn"] = FFNConfig(kind="pkm", n_subkeys=8, pkm_heads=2, pkm_knn=4)
     if cfg.xl_memory:
         kw["xl_memory"] = 32
     return cfg.override(**kw)

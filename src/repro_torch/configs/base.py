@@ -3,15 +3,29 @@
 config built here equals the reference's field by field).
 
 Everything is a frozen dataclass; ``cfg.override(**kw)`` and
-``cfg.with_ffn(ffn)`` produce variants. Pure data: no torch import. Only
-the MoE FFN kinds and attention mixers have code behind them so far.
-``OptimizerConfig`` is the reference's, for the trainer (``runtime/steps``).
+``cfg.with_ffn(ffn)`` produce variants. Pure data: no torch import.
+``FFN_KINDS`` and ``FFN_IMPLS`` are the reference's names; the port runs
+the kinds in ``models/ffn.FFN_REGISTRY`` that do not raise, and only
+attention mixers. ``OptimizerConfig`` is the reference's, for the trainer
+(``runtime/steps``).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+FFN_KINDS = ("dense", "glu", "topk", "pkm", "sigma_moe", "switch", "sbase",
+             "noisy_topk", "none")
+
+# The execution rung of an FFN (core/dispatch.py): "auto" defers to
+# kernels.ops.default_impl; "pallas_fused" and "pallas" run the CUDA kernels
+# (the "_interpret" names select the same rungs here); "ragged" and "ref"
+# are the sort path's plain grouped matmuls; "einsum" the weighted value
+# sum's plain gather; "dense" bypasses the planned layer (the oracle).
+FFN_IMPLS = ("auto", "dense", "einsum", "ragged", "ref", "pallas",
+             "pallas_interpret", "pallas_fused", "pallas_fused_interpret")
+
 
 @dataclass(frozen=True)
 class FFNConfig:
@@ -31,8 +45,7 @@ class FFNConfig:
     reg_kind: str = "entropy"          # entropy | switch | cv | none
     capacity_factor: float = 1.25
     dispatch: str = "einsum"           # einsum | sort  (sort == CVMM path)
-    impl: str = "auto"                 # sort-path rung: auto | pallas |
-    #                                    ragged | ref (core/dispatch.py)
+    impl: str = "auto"                 # execution rung, see FFN_IMPLS
     sigma_moe_init: bool = True
     n_shared_experts: int = 0
     glu_experts: bool = False
@@ -43,8 +56,39 @@ class FFNConfig:
     # --- PKM ---
     pkm_heads: int = 4
     pkm_knn: int = 32
-    n_subkeys: int = 0
-    n_candidates: int = 0
+    n_subkeys: int = 0                 # n_values = n_subkeys**2
+    n_candidates: int = 0              # C of the two-stage top-C (0: C = K)
+
+    @property
+    def n_values(self) -> int:
+        """PKM's value-table rows, derived from ``n_subkeys``."""
+        return self.n_subkeys * self.n_subkeys
+
+    @property
+    def pkm_candidates(self) -> int:
+        """C of the two-stage product-key top-K: the C*C candidate grid
+        holds the true top-K when C >= K, so C defaults to ``pkm_knn``."""
+        return self.n_candidates or self.pkm_knn
+
+    def validate(self) -> None:
+        assert self.kind in FFN_KINDS, self.kind
+        assert self.impl in FFN_IMPLS, self.impl
+        if self.kind in ("sigma_moe", "switch", "sbase", "noisy_topk"):
+            assert self.n_experts > 0 and self.expert_size > 0 and self.k > 0
+        if self.kind == "pkm":
+            assert self.n_subkeys > 1
+            assert self.d_ff in (0, self.n_values), \
+                f"pkm d_ff={self.d_ff} != n_subkeys**2={self.n_values}"
+            if self.n_candidates:
+                assert self.n_candidates >= self.pkm_knn, (
+                    f"pkm n_candidates={self.n_candidates} < pkm_knn="
+                    f"{self.pkm_knn}: the C*C candidate grid holds the true "
+                    f"top-K only when C >= K")
+                assert self.n_candidates <= self.n_subkeys, (
+                    f"pkm n_candidates={self.n_candidates} > n_subkeys="
+                    f"{self.n_subkeys}: each half has only n_subkeys scores")
+        if self.kind in ("dense", "glu", "topk"):
+            assert self.d_ff > 0
 
 
 def moe_ffn(n_experts: int, expert_size: int, k: int, **kw) -> FFNConfig:

@@ -1,5 +1,20 @@
-"""Selection -> planned execution of the MoE expert MLP (the reference's
-``core/dispatch.py``, sort dispatch only).
+"""Selection -> planned execution (the reference's ``core/dispatch.py``,
+sort dispatch only): the MoE expert MLP and the weighted value sum.
+
+``weighted_value_sum`` is the aggregation the paper's row-selecting
+approximators share: PKM's values (``core/pkm.py``) and the top-K MLP's W2
+rows (``core/topk_mlp.py``) are value tables, and a ``Selection`` names the
+rows each token takes and their weights. ``value_sum_path`` picks the rung:
+
+  pallas_fused,  ``ops.gathered_weighted_sum_dedup``: the union of the
+  pallas        batch's selections, deduplicated and sorted, goes through
+                K6 once (and once more in backward); the weights apply
+                in plain torch as the rows expand back to the tokens.
+  einsum        ``dense_value_gather`` then an einsum, the reference
+                semantics: only an explicit ``impl`` or a dtype K6 does
+                not take (``ops.gather_supported``) reaches it; it is
+                "auto" on the CPU, where "ragged" is the default. CPU
+                only, as is "dense": on CUDA they raise.
 
 ``expert_mlp`` runs one MoE layer's experts at a fixed selection. Within
 the "sort" dispatch (the paper's dropless CVMM) ``resolve_impl`` names an
@@ -27,7 +42,7 @@ check is absent. The "einsum" and "shard_map" dispatches are not ported.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -44,10 +59,71 @@ def base_aux(device=None) -> Dict[str, torch.Tensor]:
             "moe_dropped": torch.zeros((), dtype=torch.float32, device=device)}
 
 
+class Selection(NamedTuple):
+    """Which rows of a value table each token selected, and their weights."""
+    idx: torch.Tensor        # (N, S) int row ids
+    weights: torch.Tensor    # (N, S) aggregation weights
+    n_items: int             # rows of the table (E / n_values / d_ff)
+
+
+def selection_usage(sel: Selection) -> Dict[str, torch.Tensor]:
+    """Usage histogram over the selected rows (paper Fig. 3/7): counts,
+    summed weights and the counts' entropy, all float32."""
+    flat = sel.idx.reshape(-1).long()
+    counts = torch.bincount(flat, minlength=sel.n_items).float()
+    weight = torch.zeros(sel.n_items, dtype=torch.float32, device=flat.device
+                         ).index_add_(0, flat, sel.weights.reshape(-1).float())
+    frac = counts / (torch.sum(counts) + 1e-9)
+    ent = -torch.sum(frac * torch.log(frac + 1e-9))
+    return {"counts": counts, "weight": weight, "usage_entropy": ent}
+
+
 def resolve_impl(cfg: FFNConfig, device) -> str:
     """Per-layer impl knob: cfg.impl, with "auto" deferring to the pinned or
     the device's default rung (``ops.default_impl``)."""
     return kops.default_impl(device) if cfg.impl == "auto" else cfg.impl
+
+
+# ---------------------------------------------------------------------------
+# Weighted value aggregation (PKM values / top-K W2 rows)
+# ---------------------------------------------------------------------------
+
+def dense_value_gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The einsum rung's (N, S, d) gather; no kernel rung calls it."""
+    return values[idx]
+
+
+def value_sum_path(cfg: FFNConfig, d_model: int, dtype, device) -> str:
+    """The rung ``weighted_value_sum`` runs for this config, feature width,
+    dtype and device: "dense" (the approximators' own oracle), "pallas_fused"
+    or "pallas" (K6), or "einsum". "dense" and "einsum" are plain CPU rungs:
+    on CUDA a config or dtype that leads to them raises."""
+    impl = resolve_impl(cfg, device)
+    if impl == "dense":
+        path = "dense"
+    elif impl.startswith("pallas") and kops.gather_supported(d_model, dtype):
+        path = "pallas_fused" if impl.startswith("pallas_fused") else "pallas"
+    else:
+        path = "einsum"
+    if torch.device(device).type == "cuda" and not path.startswith("pallas"):
+        raise NotImplementedError(
+            f"the weighted value sum's {path!r} rung (impl={impl!r}, {dtype}) "
+            "is a plain CPU rung; on CUDA use 'pallas_fused' or 'pallas' with "
+            "a float32 or bfloat16 table")
+    return path
+
+
+def weighted_value_sum(values: torch.Tensor, sel: Selection, n_tokens: int,
+                       cfg: FFNConfig) -> torch.Tensor:
+    """y[t] = sum_s sel.weights[t, s] * values[sel.idx[t, s]]  (N, d), on
+    the rung ``value_sum_path`` names. The kernel rungs build one
+    ``DedupGatherPlan`` a call; "dense" computes the einsum rung's sum."""
+    path = value_sum_path(cfg, values.shape[-1], values.dtype, values.device)
+    if path in ("pallas_fused", "pallas"):
+        plan = kops.make_dedup_gather_plan(sel.idx, sel.weights, values.shape[0])
+        return kops.gathered_weighted_sum_dedup(values, plan, n_tokens)
+    rows = dense_value_gather(values, sel.idx)
+    return torch.einsum("ns,nsd->nd", sel.weights.to(rows.dtype), rows)
 
 
 def _expert_ffn(cfg: FFNConfig, h_pre: torch.Tensor, h_gate) -> torch.Tensor:

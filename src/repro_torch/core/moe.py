@@ -12,7 +12,7 @@ from ..common import act_fn, round_up
 from ..configs.base import FFNConfig
 from . import init as initlib
 from .dispatch import expert_mlp
-from .regularizers import REGULARIZERS
+from .regularizers import REGULARIZERS, usage_stats
 from .routing import SelectionInfo, select_experts
 
 
@@ -67,11 +67,12 @@ def _route(params: Dict, xf: torch.Tensor, cfg: FFNConfig, e_pad: int,
 
 
 def apply_moe(params: Dict, x: torch.Tensor, cfg: FFNConfig, *,
-              gen: Optional[torch.Generator] = None,
-              train: bool = False) -> Tuple[torch.Tensor, Dict]:
+              gen: Optional[torch.Generator] = None, train: bool = False,
+              collect_stats: bool = False) -> Tuple[torch.Tensor, Dict]:
     """y_hat = sum_{e in E_x} W2^e s[e] act(W1^e x)  (paper Eq. 11) + aux.
     ``aux["moe_reg"]`` is the scaled regularizer, differentiable through the
-    router; ``gen`` draws the expert dropout mask in training."""
+    router; ``gen`` draws the expert dropout mask in training; with
+    ``collect_stats``, ``aux["usage"]`` is ``usage_stats`` of the routing."""
     lead = x.shape[:-1]
     d = x.shape[-1]
     xf = x.reshape(-1, d)
@@ -86,5 +87,7 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg: FFNConfig, *,
                                    params["shared_w1g"].to(xf.dtype))
         y = y + torch.einsum("eng,egd->nd", us, params["shared_w2"].to(xf.dtype))
     reg = REGULARIZERS[cfg.reg_kind](info, cfg.n_experts)
-    return y.reshape(*lead, d), {"moe_reg": cfg.reg_gamma * reg,
-                                 "moe_dropped": dropped}
+    aux = {"moe_reg": cfg.reg_gamma * reg, "moe_dropped": dropped}
+    if collect_stats:
+        aux["usage"] = usage_stats(info, cfg.n_experts)
+    return y.reshape(*lead, d), aux

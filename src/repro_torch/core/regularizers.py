@@ -1,6 +1,7 @@
 """Load-balancing regularizers (paper Sec. 4-5), as in the reference's
 ``core/regularizers.py``: each maps a layer's SelectionInfo to a scalar
-loss (already sign-correct for minimization)."""
+loss (already sign-correct for minimization). ``usage_stats`` is the
+expert-usage diagnostic of ``apply_moe(collect_stats=True)``."""
 from __future__ import annotations
 
 import torch
@@ -36,3 +37,15 @@ def cv_reg(info: SelectionInfo, n_valid: int) -> torch.Tensor:
 REGULARIZERS = {"entropy": entropy_reg, "switch": switch_reg, "cv": cv_reg,
                 "none": lambda info, n_valid: torch.zeros(
                     (), device=info.probs.device)}
+
+
+def usage_stats(info: SelectionInfo, n_valid: int):
+    """Diagnostics for expert-collapse analysis (paper Fig. 3/7): selection
+    counts and summed gates per valid expert, and the counts' entropy."""
+    e = info.probs.shape[1]
+    onehot = F.one_hot(info.idx.long(), e).float()
+    counts = torch.sum(onehot, dim=(0, 1))[:n_valid]
+    weight = torch.sum(onehot * info.gates.float()[..., None], dim=(0, 1))[:n_valid]
+    frac = counts / (torch.sum(counts) + 1e-9)
+    ent = -torch.sum(frac * torch.log(frac + 1e-9))
+    return {"counts": counts, "weight": weight, "usage_entropy": ent}

@@ -1,6 +1,7 @@
 """Expert selection (the reference's ``core/routing.py``): the softmax and
-sigmoid selectors with top-k, and expert dropout in training. Noisy gating,
-Sinkhorn and S-BASE are not ported yet.
+sigmoid selectors with top-k, expert dropout in training, and PKM's
+two-stage product-key top-K. Noisy gating, Sinkhorn and S-BASE are not
+ported yet.
 
 ``select_experts(logits, cfg) -> SelectionInfo`` with ``gates``/``idx``
 (N, K) and the full selection distribution for the regularizers.
@@ -37,6 +38,26 @@ def norm_topk(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     vals, idx = top_k(s, k)
     gates = vals / (torch.sum(vals, dim=-1, keepdim=True) + 1e-9)
     return gates, idx
+
+
+def two_stage_topk(ua: torch.Tensor, ub: torch.Tensor, k: int,
+                   n_candidates: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-stage product-key top-K (paper Sec. 3.2): the top-C of each
+    sub-key half, then the top-K of the C*C candidate grid va[a] + vb[b],
+    which holds the true top-K of the full ns**2 grid when C >= K.
+
+    ua, ub (..., ns). Returns (scores, sel_a, sel_b), each (..., K); the
+    value index is ``sel_b * ns + sel_a``. Every top-k here is ``top_k``,
+    so ties go toward the lower index as in the reference."""
+    c = n_candidates or k
+    va, ia = top_k(ua, c)
+    vb, ib = top_k(ub, c)
+    cand = (va[..., :, None] + vb[..., None, :]).reshape(*va.shape[:-1], c * c)
+    top, flat = top_k(cand, k)
+    sel_a = torch.gather(ia, -1, flat // c)
+    sel_b = torch.gather(ib, -1, flat % c)
+    return top, sel_a, sel_b
 
 
 def expert_dropout_mask(gen: torch.Generator, n_experts: int, rate: float,

@@ -1,14 +1,20 @@
-"""Dense and GLU feedforward blocks, the paper's baseline (the reference's
-``core/topk_mlp.py``, Sec. 2):
+"""Dense, GLU and top-K-activation feedforward blocks (the reference's
+``core/topk_mlp.py``, paper Sec. 2 and 3.1):
 
     y = W2 act(W1 x)                       kind "dense"
     y = W2 (act(W1 x) * (W3 x))            kind "glu"
+    y = W2 topK(act(W1 x))                 kind "topk"
 
-Both are plain large products (the reference's ``jnp.einsum``, outside any
-Pallas kernel), so they stay ``torch.matmul``. The "topk" kind (Sec. 3.1)
-needs the shared planned aggregation ``dispatch.weighted_value_sum``, which
-comes with PKM (ROADMAP queue 1 item 4); until then the registry
-(``models/ffn.py``) raises for it.
+Dense and GLU are plain large products (the reference's ``jnp.einsum``,
+outside any Pallas kernel), so they stay ``torch.matmul``. The top-K
+activation is the framework's simplest selection rule: ``routing.top_k``
+over u = act(W1 x) picks K of the d_ff rows of W2, and the down-projection
+is the shared weighted value sum (``dispatch.weighted_value_sum``, W2 the
+value table, the K surviving activations the weights), which runs K6 on
+CUDA. The full up-projection is still needed to find the top-K (Sec.
+3.1), so only the down-projection is sparse. ``impl="dense"`` keeps the
+masked dense down-projection as the oracle (``_down_dense``), on the CPU
+only.
 
 x: (..., d_model); aux follows the uniform contract (``dispatch.base_aux``).
 """
@@ -21,7 +27,9 @@ import torch
 from ..common import act_fn
 from ..configs.base import FFNConfig
 from . import init as initlib
-from .dispatch import base_aux
+from . import routing
+from .dispatch import (Selection, base_aux, selection_usage, value_sum_path,
+                       weighted_value_sum)
 
 
 def init_dense(gen: torch.Generator, d_model: int, cfg: FFNConfig,
@@ -40,12 +48,40 @@ def init_dense(gen: torch.Generator, d_model: int, cfg: FFNConfig,
     return p
 
 
+def _down_dense(u: torch.Tensor, w2: torch.Tensor, k: int) -> torch.Tensor:
+    """impl="dense" oracle: the top-K mask (Eq. 6-7) and the full
+    down-projection. With ReLU u >= 0, so keeping u >= the K-th largest
+    value gives the sparse path's sum."""
+    kth = routing.top_k(u, k)[0][..., -1:]
+    return u.masked_fill(u < kth, 0) @ w2
+
+
 def apply_dense(params: Dict, x: torch.Tensor, cfg: FFNConfig, *,
-                gen: Optional[torch.Generator] = None,
-                train: bool = False) -> Tuple[torch.Tensor, Dict]:
-    """act(x W1) [* x W3] then W2, in x's dtype. No dropout here."""
+                gen: Optional[torch.Generator] = None, train: bool = False,
+                collect_stats: bool = False) -> Tuple[torch.Tensor, Dict]:
+    """dense | glu | topk in x's dtype; no dropout here. With
+    ``collect_stats``, the top-K kind's ``aux["usage"]`` is the usage of
+    the d_ff channels (``dispatch.selection_usage``)."""
     del gen, train                     # uniform registry signature
+    aux = base_aux(x.device)
     u = act_fn(cfg.activation)(x @ params["w1"].to(x.dtype))
     if cfg.kind == "glu":
         u = u * (x @ params["w3"].to(x.dtype))
-    return u @ params["w2"].to(x.dtype), base_aux(x.device)
+    w2 = params["w2"].to(x.dtype)
+    if cfg.kind == "topk" and cfg.topk_k and cfg.topk_k < cfg.d_ff:
+        lead = x.shape[:-1]
+        uf = u.reshape(-1, cfg.d_ff)
+        if value_sum_path(cfg, w2.shape[-1], w2.dtype, x.device) == "dense":
+            y = _down_dense(uf, w2, cfg.topk_k)
+            if collect_stats:
+                vals, idx = routing.top_k(uf, cfg.topk_k)
+                aux["usage"] = selection_usage(
+                    Selection(idx=idx, weights=vals, n_items=cfg.d_ff))
+            return y.reshape(*lead, -1), aux
+        vals, idx = routing.top_k(uf, cfg.topk_k)
+        sel = Selection(idx=idx, weights=vals, n_items=cfg.d_ff)
+        y = weighted_value_sum(w2, sel, uf.shape[0], cfg)
+        if collect_stats:
+            aux["usage"] = selection_usage(sel)
+        return y.reshape(*lead, -1), aux
+    return u @ w2, aux

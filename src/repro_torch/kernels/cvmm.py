@@ -32,7 +32,7 @@ or raises. A kernel's output has no autograd history, so on CUDA every
 wrapper raises when grad mode is on and an input requires grad: gradients
 come from the autograd Functions of ``kernels/ops.py``, whose backward
 passes launch the kernels themselves (``moe_mlp_fused``: K1, K3, K4;
-``cvmm_planned``: K4, K5). ``LAUNCHES`` counts kernel launches per wrapper,
+``cvmm_planned``: K4, K5; ``gathered_weighted_sum(_dedup)``: K6). ``LAUNCHES`` counts kernel launches per wrapper,
 K7's (``kernels/flash_attention.py``) included; nothing else adds to it.
 """
 from __future__ import annotations
@@ -78,9 +78,10 @@ def _use_plain(t: torch.Tensor) -> bool:
 
 
 _GRAD_REMEDY = ("Differentiate through the autograd Functions of kernels/ops.py "
-                "(ops.moe_mlp_fused, ops.cvmm_planned, ops.cvmm), whose "
-                "backward launches the kernels, or call this wrapper under "
-                "torch.no_grad().")
+                "(ops.moe_mlp_fused, ops.cvmm_planned, ops.cvmm, "
+                "ops.gathered_weighted_sum, ops.gathered_weighted_sum_dedup), "
+                "whose backward launches the kernels, or call this wrapper "
+                "under torch.no_grad().")
 
 
 def _check_cuda(name: str, *tensors: Optional[torch.Tensor],

@@ -29,6 +29,15 @@ Entry points
                             through ``_tile_layout`` and that Function.
 ``plan_sort_kernels``      the sort path's rung for a shape class
                             (``set_default_impl``/``default_impl`` pin it).
+``gathered_weighted_sum``  the weighted value sum on a ``GatherPlan`` (one
+                            slot per selection): forward K6 with the weight
+                            in its epilogue, backward K6 again for the
+                            weights' gradient, as a
+                            ``torch.autograd.Function``.
+``gathered_weighted_sum_dedup``  the same on a ``DedupGatherPlan`` (each
+                            selected row once): K6 forward and backward;
+                            the main path of PKM and the top-K MLP
+                            (``core/dispatch.weighted_value_sum``).
 ``moe_mlp_decode``         serving's decode-shaped MoE MLP on a cached,
                             routing-free ``DecodePlan`` (K6 gather, then K4
                             three times; forward only).
@@ -393,6 +402,101 @@ def moe_mlp_fused(xf: torch.Tensor, plan: CvmmPlan, w1: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Weighted row-gather plan (PKM values, the top-K MLP's W2 rows)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GatherPlan:
+    """Layout of one weighted row gather-sum: one slot per flat (token,
+    slot) selection, in that order, padded to a multiple of TM. The
+    reference's ``GatherPlan`` without the TPU DMA chunk table;
+    ``weight_tiles`` is the one differentiable field."""
+    row_src: torch.Tensor       # (M_pad,) int32 table row; sentinel n_rows on slack
+    tok_src: torch.Tensor       # (M_pad,) int32 token; sentinel n_tokens on slack
+    weight_tiles: torch.Tensor  # (M_pad//TM, TM) float32 weight, 0 on slack
+
+    @property
+    def m_pad(self) -> int:
+        return self.weight_tiles.shape[0] * TM
+
+
+def make_gather_plan(idx: torch.Tensor, weights: torch.Tensor,
+                     n_rows: int) -> GatherPlan:
+    """idx (N, S) row ids into a table of ``n_rows`` rows, weights (N, S);
+    differentiable in ``weights``."""
+    n_tokens, s = idx.shape
+    m = n_tokens * s
+    pad = round_up(m, TM) - m
+    tok = torch.arange(n_tokens, dtype=torch.int32, device=idx.device)
+    row_src = F.pad(idx.reshape(-1).to(torch.int32), (0, pad), value=n_rows)
+    tok_src = F.pad(tok.repeat_interleave(s), (0, pad), value=n_tokens)
+    w = F.pad(weights.reshape(-1).float(), (0, pad))
+    return GatherPlan(row_src=row_src, tok_src=tok_src,
+                      weight_tiles=w.reshape(-1, TM))
+
+
+def gather_supported(d_model: int, dtype=torch.float32) -> bool:
+    """Gate for the K6 rungs of the weighted value sum. On the TPU the
+    answer is whether a (TM, d_pad) tile ring fits VMEM. K6 keeps no shared
+    memory (each warp copies its slice of a row straight through), so it
+    takes any lane-padded width in float32 or bfloat16, and nothing else:
+    a width too large for VMEM runs K6 here, and another dtype goes to the
+    einsum rung."""
+    del d_model
+    return dtype in (torch.float32, torch.bfloat16)
+
+
+class _GatheredWeightedSum(torch.autograd.Function):
+    """The reference's ``_gathered_weighted_sum`` custom_vjp: forward K6
+    with the weight in its epilogue (``fuse``) or K6 then the multiply, the
+    rows summed per token in float32 and rounded once; backward K6 again
+    (unweighted) for the weights' gradient, and dy[tok] * w summed into the
+    table in float32, rounded once (the reference sums in the table's
+    dtype). Residuals: the padded table and the plan."""
+
+    @staticmethod
+    def forward(ctx, values_pad, weight, row_src, tok_src, n_tokens, fuse):
+        if fuse:
+            rows = K.gather_rows(values_pad.detach(), row_src, weight.detach())
+        else:
+            rows = K.gather_rows(values_pad.detach(), row_src)
+            rows = (rows.float() * weight[:, None]).to(rows.dtype)
+        ctx.save_for_backward(values_pad, weight, row_src, tok_src)
+        return _scatter_rows(rows, tok_src, n_tokens, rows.shape[1], rows.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        values_pad, weight, row_src, tok_src = ctx.saved_tensors
+        # a sentinel token reads the appended zero row
+        dy_rows = torch.cat([dy.float(), dy.new_zeros((1, dy.shape[1]),
+                                                      dtype=torch.float32)])
+        dy_rows = dy_rows[tok_src.long()]
+        dvalues = dweight = None
+        if ctx.needs_input_grad[1]:
+            rows = K.gather_rows(values_pad.detach(), row_src)
+            dweight = torch.sum(rows.float() * dy_rows, dim=1)
+            del rows
+        if ctx.needs_input_grad[0]:
+            dvalues = _scatter_rows(dy_rows * weight[:, None], row_src,
+                                    values_pad.shape[0], values_pad.shape[1],
+                                    values_pad.dtype)
+        return dvalues, dweight, None, None, None, None
+
+
+def gathered_weighted_sum(values: torch.Tensor, plan: GatherPlan,
+                          n_tokens: int, *,
+                          fuse_weights: bool = True) -> torch.Tensor:
+    """y[t] = sum_{s: tok[s]=t} w[s] * values[row[s]]  (n_tokens, d), one K6
+    slot per selection; differentiable in ``values`` and the plan's
+    ``weight_tiles``. ``fuse_weights=False`` multiplies outside K6."""
+    d = values.shape[-1]
+    y = _GatheredWeightedSum.apply(_pad_lane(values, 1),
+                                   plan.weight_tiles.reshape(-1), plan.row_src,
+                                   plan.tok_src, n_tokens, fuse_weights)
+    return y[:, :d]
+
+
+# ---------------------------------------------------------------------------
 # Deduplicated, row-index-sorted gather plan
 # ---------------------------------------------------------------------------
 
@@ -431,6 +535,71 @@ def make_dedup_gather_plan(idx: torch.Tensor, weights: torch.Tensor,
     return DedupGatherPlan(row_src=row_src, sel_pos=inv.reshape(-1),
                            tok_src=tok_src,
                            weights=weights.reshape(-1).float())
+
+
+def _selections(rows: torch.Tensor, sel_pos: torch.Tensor,
+                n_tokens: int) -> torch.Tensor:
+    """The compacted rows expanded to selection order in float32, (N, S,
+    d_pad): a dedup plan's ``tok_src`` is token-major by construction
+    (selection t*S + s belongs to token t)."""
+    if sel_pos.numel() % n_tokens:
+        raise ValueError(f"a dedup plan of {sel_pos.numel()} selections "
+                         f"does not split into {n_tokens} tokens")
+    return rows.float()[sel_pos].view(n_tokens, -1, rows.shape[1])
+
+
+class _GatheredWeightedSumDedup(torch.autograd.Function):
+    """The reference's ``_gathered_weighted_sum_dedup`` custom_vjp. Forward:
+    K6 copies the plan's compacted union of rows once; ``sel_pos`` expands
+    it back to the selections, weighted and summed per token in float32
+    (a reshape-sum: ``tok_src`` is token-major), rounded once. Backward: K6
+    again for dweight[s] = dy[tok[s]] . V[idx[s]], and dV in two float32
+    levels, the selections into the compacted block, then the block into
+    the table, cast once (slack rows land on an appended row that is
+    dropped). Residuals: the padded table and the plan, not the (M, d)
+    rows."""
+
+    @staticmethod
+    def forward(ctx, values_pad, weights, row_src, sel_pos, n_tokens):
+        rows = K.gather_rows(values_pad.detach(), row_src)
+        sel = _selections(rows, sel_pos, n_tokens)
+        y = torch.bmm(weights.view(n_tokens, 1, -1), sel).view(n_tokens, -1)
+        ctx.save_for_backward(values_pad, weights, row_src, sel_pos)
+        ctx.n_tokens = n_tokens
+        return y.to(rows.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        values_pad, weights, row_src, sel_pos = ctx.saved_tensors
+        n, width = ctx.n_tokens, values_pad.shape[1]
+        dyf = dy.float()
+        dvalues = dweights = None
+        if ctx.needs_input_grad[1]:
+            sel = _selections(K.gather_rows(values_pad.detach(), row_src),
+                              sel_pos, n)
+            dweights = torch.bmm(sel, dyf.reshape(n, width, 1)).view(-1)
+            del sel
+        if ctx.needs_input_grad[0]:
+            prod = weights.view(n, -1, 1) * dyf.reshape(n, 1, width)
+            dcompact = torch.zeros((row_src.shape[0], width), dtype=torch.float32,
+                                   device=dy.device)
+            dcompact.index_add_(0, sel_pos, prod.view(-1, width))
+            del prod
+            dvalues = values_pad.new_zeros((values_pad.shape[0] + 1, width))
+            dvalues.index_copy_(0, row_src.long(), dcompact.to(values_pad.dtype))
+            dvalues = dvalues[:-1]
+        return dvalues, dweights, None, None, None
+
+
+def gathered_weighted_sum_dedup(values: torch.Tensor, plan: DedupGatherPlan,
+                                n_tokens: int) -> torch.Tensor:
+    """y[t] = sum_s w[t, s] * values[idx[t, s]]  (n_tokens, d) through a
+    dedup plan: each selected row passes K6 once, forward and backward.
+    Differentiable in ``values`` and the plan's ``weights``."""
+    d = values.shape[-1]
+    y = _GatheredWeightedSumDedup.apply(_pad_lane(values, 1), plan.weights,
+                                        plan.row_src, plan.sel_pos, n_tokens)
+    return y[:, :d]
 
 
 def dedup_gather_rows(values: torch.Tensor,

@@ -1,7 +1,7 @@
 """Train a language model with the port, on one device.
 
     python -m repro_torch.launch.train --arch wt103-47m-moe --steps 30 \
-        --batch 32 --seq 256 [--reduced] [--device cpu] \
+        --batch 32 --seq 256 [--ffn KIND] [--reduced] [--device cpu] \
         [--data synthetic|/path/corpus] \
         [--ckpt-dir DIR [--ckpt-every N] [--keep N] [--resume]]
 
@@ -24,6 +24,14 @@ stateful ``torch.Generator`` (the reference folds the step into a pure
 key), so its state is part of the checkpoint. Unlike the reference, the
 port writes no checkpoint without ``--ckpt-dir``. ``--fail-at-step``
 raises at that step, after waiting for a save in flight, to test restarts.
+
+``--ffn`` swaps the arch's FFN to another kind by the reference's widths
+rule (``models.build_model(ffn=)``): "sigma_moe", "topk", "pkm", "dense"
+or "glu". The top-K MLP's and PKM's value sums run K6 on CUDA, forward and
+backward (``ops.gathered_weighted_sum_dedup``). A swap to "sigma_moe"
+gives the reference's config, whose "einsum" dispatch the port does not
+run yet (ROADMAP queue 1 item 1), so the trainer refuses it before it
+builds anything.
 
 The expert MLPs run on the sort path's rung for the device: the fused
 kernels on CUDA (K1, K2; backward K1, K3, K4). As in the reference, which
@@ -76,6 +84,10 @@ def main(argv: Optional[List[str]] = None, eval_batches: int = 0) -> Dict:
     that many held-out batches (the data stream of ``--seed + 1000``)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="wt103-47m-moe")
+    ap.add_argument("--ffn", default=None,
+                    help="swap FFN kind (topk|pkm|dense|glu; a swap to "
+                         "sigma_moe is refused: its 'einsum' dispatch is not "
+                         "ported, ROADMAP queue 1 item 1)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke config of the arch")
     ap.add_argument("--steps", type=int, default=100)
@@ -115,7 +127,13 @@ def main(argv: Optional[List[str]] = None, eval_batches: int = 0) -> Dict:
     if args.resume and args.ckpt_dir is None:
         raise SystemExit("--resume needs --ckpt-dir")
     cfg = reduced(args.arch) if args.reduced else get_config(args.arch)
-    model = build_model(cfg)
+    model = build_model(cfg, ffn=args.ffn)
+    cfg = model.cfg
+    if cfg.ffn.kind == "sigma_moe" and cfg.ffn.dispatch != "sort":
+        raise SystemExit(
+            f"--ffn {args.ffn} gives dispatch={cfg.ffn.dispatch!r}, which the "
+            "port does not run yet (ROADMAP queue 1 item 1); train an arch "
+            "whose own FFN is sigma_moe instead")
     opt_cfg = OptimizerConfig(lr=args.lr, total_steps=args.steps)
     train_step = make_train_step(model, opt_cfg)
     ds = make_dataset(args.data, cfg.vocab_size)
@@ -126,7 +144,8 @@ def main(argv: Optional[List[str]] = None, eval_batches: int = 0) -> Dict:
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
     print(f"[train] {cfg.name}{' (reduced)' if args.reduced else ''}: "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e6:.2f} M "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, ffn {cfg.ffn.kind}, "
+          f"{n_params / 1e6:.2f} M "
           f"params, {model.dtype} compute; batch {args.batch} x seq {args.seq} "
           f"on {dev}; data {args.data}", flush=True)
 

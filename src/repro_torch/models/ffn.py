@@ -5,12 +5,14 @@ approximators (``core/``) into model blocks.
 uniform contract:
 
     init(gen, d_model, cfg, n_layers, dtype, ep_degree, device) -> params
-    apply(params, x, cfg, *, gen, train) -> (y, aux)
+    apply(params, x, cfg, *, gen, train, collect_stats) -> (y, aux)
 
 where ``aux`` always carries ``moe_reg`` and ``moe_dropped``
-(``core/dispatch.base_aux``), so the stack sums aux alike for every kind.
-"dense", "glu", "none" and "sigma_moe" run; the reference's other kinds are
-registered names whose init and apply raise and name their ROADMAP item.
+(``core/dispatch.base_aux``), so the stack sums aux alike for every kind,
+plus ``usage`` (a selection-usage histogram: experts, PKM values or top-K
+channels) when ``collect_stats=True``. "dense", "glu", "topk", "pkm",
+"none" and "sigma_moe" run; the reference's other MoE kinds are registered
+names whose init and apply raise and name their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from ..configs.base import FFNConfig
 from ..core.dispatch import base_aux
 from ..core.moe import apply_moe, init_moe
+from ..core.pkm import apply_pkm, init_pkm
 from ..core.topk_mlp import apply_dense, init_dense
 
 MOE_KINDS = ("sigma_moe", "switch", "sbase", "noisy_topk")
@@ -38,8 +41,8 @@ def _init_none(gen, d_model: int, cfg: FFNConfig, n_layers: int,
 
 
 def _apply_none(params: Dict, x: torch.Tensor, cfg: FFNConfig, *,
-                gen: Optional[torch.Generator] = None,
-                train: bool = False) -> Tuple[torch.Tensor, Dict]:
+                gen: Optional[torch.Generator] = None, train: bool = False,
+                collect_stats: bool = False) -> Tuple[torch.Tensor, Dict]:
     return torch.zeros_like(x), base_aux(x.device)
 
 
@@ -54,8 +57,8 @@ def _not_ported(item: str) -> FFNEntry:
 FFN_REGISTRY: Dict[str, FFNEntry] = {
     "dense": FFNEntry(init_dense, apply_dense),
     "glu": FFNEntry(init_dense, apply_dense),
-    "topk": _not_ported("item 4, weighted_value_sum"),
-    "pkm": _not_ported("item 4, PKM"),
+    "topk": FFNEntry(init_dense, apply_dense),
+    "pkm": FFNEntry(init_pkm, apply_pkm),
     "none": FFNEntry(_init_none, _apply_none),
     "sigma_moe": FFNEntry(init_moe, apply_moe),
     **{kind: _not_ported("item 1, the other MoE kinds and selectors")
@@ -71,6 +74,7 @@ def init_ffn(gen: torch.Generator, d_model: int, cfg: FFNConfig,
 
 
 def apply_ffn(params: Dict, x: torch.Tensor, cfg: FFNConfig, *,
-              gen: Optional[torch.Generator] = None,
-              train: bool = False) -> Tuple[torch.Tensor, Dict]:
-    return FFN_REGISTRY[cfg.kind].apply(params, x, cfg, gen=gen, train=train)
+              gen: Optional[torch.Generator] = None, train: bool = False,
+              collect_stats: bool = False) -> Tuple[torch.Tensor, Dict]:
+    return FFN_REGISTRY[cfg.kind].apply(params, x, cfg, gen=gen, train=train,
+                                        collect_stats=collect_stats)

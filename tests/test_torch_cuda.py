@@ -4,6 +4,7 @@ also runs on a GPU machine without the JAX package:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import math
 
 import pytest
@@ -488,6 +489,87 @@ def test_unfused_gradients_match_plain(cuda, entry):
     for got, want in zip(*outs):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert bool((outs[0][2][1] == 0).all())              # the expert with no rows
+
+
+def _value_sum(dev, rung, dtype, n=300, s=12, rows=2053, d=412):
+    """The weighted value sum of ``rung`` on ``dev`` (K6 on the card, its
+    plain version on the CPU) over a table of W2's 47M shape, every token
+    sharing row 5: (y, dvalues, dweights) in float32 on the CPU."""
+    gen = torch.Generator().manual_seed(7)
+    idx = torch.randint(0, rows, (n, s), generator=gen)
+    idx[:, 0] = 5
+    w = torch.rand((n, s), generator=gen).to(dev).requires_grad_()
+    v = (torch.randn((rows, d), generator=gen) / 20).to(dev, dtype).requires_grad_()
+    cot = torch.randn((n, d), generator=gen).to(dev)
+    if rung == "dedup":
+        y = ops.gathered_weighted_sum_dedup(
+            v, ops.make_dedup_gather_plan(idx.to(dev), w, rows), n)
+    else:
+        y = ops.gathered_weighted_sum(v, ops.make_gather_plan(idx.to(dev), w, rows), n,
+                                      fuse_weights=rung == "fused")
+    (y.float() * cot).sum().backward()
+    return [t.detach().float().cpu() for t in (y, v.grad, w.grad)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("rung", ["dedup", "fused", "unfused"])
+def test_weighted_value_sum_kernels_match_plain(cuda, rung, dtype, tol):
+    """One K6 launch forward and one backward, against the plain versions
+    on the CPU."""
+    before = K.LAUNCHES["gather_rows"]
+    got = _value_sum(cuda, rung, dtype)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gather_rows"] == before + 2
+    for g_, w_ in zip(got, _value_sum(torch.device("cpu"), rung, dtype)):
+        torch.testing.assert_close(g_, w_, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("kind", ["pkm", "topk"])
+def test_swapped_ffn_runs_k6_forward_and_backward(cuda, kind):
+    """A PKM or top-K layer of wt103-47m-dense's width on the kernel rung:
+    two K6 launches, none of K1-K5, and float32 output and gradients
+    within 1e-4 of the plain versions on the CPU."""
+    from repro_torch.models import build_model, ffn
+    cfg = build_model("wt103-47m-dense", ffn=kind).cfg.ffn
+    init = ffn.init_ffn(torch.Generator().manual_seed(8), 412, cfg, 16, device="cpu")
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        params = {k: v.to(dev).requires_grad_() for k, v in init.items()}
+        x = torch.randn((64, 412), generator=torch.Generator().manual_seed(9)).to(dev)
+        x.requires_grad_()
+        K.reset_launch_counts()
+        ops.set_default_impl("pallas_fused")
+        try:
+            y, _ = ffn.apply_ffn(params, x, cfg)
+            (y * torch.linspace(-1, 1, 412, device=dev)).sum().backward()
+        finally:
+            ops.set_default_impl(None)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {"gather_rows": 2}
+        outs.append([t.detach().cpu() for t in [y, x.grad] + [params[k].grad
+                                                               for k in sorted(params)]])
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["pkm", "topk"])
+def test_swapped_ffn_plain_rungs_raise_on_the_card(cuda, kind):
+    """A float16 table, or a pin to the "einsum" or "dense" rung, raises on
+    the card instead of gathering the value rows without K6."""
+    from repro_torch.models import build_model, ffn
+    cfg = build_model("wt103-47m-dense", ffn=kind).cfg.ffn
+    params = {k: v.to(cuda) for k, v in ffn.init_ffn(
+        torch.Generator().manual_seed(8), 412, cfg, 16, device="cpu").items()}
+    x = torch.randn((64, 412), device=cuda)
+    cases = [(cfg, x.half())] + [(dataclasses.replace(cfg, impl=impl), x)
+                                 for impl in ("einsum", "dense")]
+    K.reset_launch_counts()
+    for c, xc in cases:
+        with pytest.raises(NotImplementedError, match="plain CPU rung"):
+            ffn.apply_ffn(params, xc, c)
+    assert K.LAUNCHES["gather_rows"] == 0
 
 
 def test_unfused_kernel_raises_under_grad(cuda):

@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: it never imports jax or the JAX
 package, its modules import cleanly without a card, and its config copy
-equals the reference's field by field."""
+equals the reference's field by field (the FFN config's kinds, impls,
+derived PKM properties and ``validate`` too)."""
 import ast
 import dataclasses
 import importlib
@@ -8,10 +9,15 @@ from pathlib import Path
 
 import pytest
 
+from repro.configs import FFNConfig as JaxFFNConfig
 from repro.configs import OptimizerConfig as JaxOptimizerConfig
+from repro.configs import archs as jax_archs
+from repro.configs import base as jax_base
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
-from repro_torch.configs import OptimizerConfig, get_config, reduced
+from repro_torch.configs import FFNConfig, OptimizerConfig, archs, get_config, reduced
+from repro_torch.configs.base import FFN_IMPLS, FFN_KINDS
+from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -62,3 +68,40 @@ def test_training_config_copies_match_reference(arch, reduce):
 def test_optimizer_config_copy_matches_reference():
     assert (dataclasses.asdict(OptimizerConfig())
             == dataclasses.asdict(JaxOptimizerConfig()))
+
+
+def _validates(cfg) -> bool:
+    try:
+        cfg.validate()
+    except AssertionError:
+        return False
+    return True
+
+
+def test_ffn_config_copy_matches_reference():
+    assert (FFN_KINDS, FFN_IMPLS) == (jax_base.FFN_KINDS, jax_base.FFN_IMPLS)
+    cases = [dict(kind="pkm", n_subkeys=45), dict(kind="pkm", n_subkeys=8, pkm_knn=4,
+                                                  n_candidates=6),
+             dict(kind="pkm", n_subkeys=8, pkm_knn=4, n_candidates=3),
+             dict(kind="pkm", n_subkeys=8, pkm_knn=4, n_candidates=9),
+             dict(kind="pkm", n_subkeys=8, d_ff=60), dict(kind="pkm", n_subkeys=1),
+             dict(kind="topk", d_ff=96, topk_k=16), dict(kind="topk"),
+             dict(kind="sigma_moe"), dict(kind="sigma_moe", n_experts=4, expert_size=8, k=2),
+             dict(kind="nope"), dict(kind="dense", d_ff=8, impl="nope")]
+    for kw in cases:
+        cfg, jcfg = FFNConfig(**kw), JaxFFNConfig(**kw)
+        assert (cfg.n_values, cfg.pkm_candidates) == (jcfg.n_values, jcfg.pkm_candidates)
+        assert _validates(cfg) == _validates(jcfg), kw
+
+
+def test_reduced_pkm_branch_matches_reference(monkeypatch):
+    """No registered arch uses PKM, so one is registered in both packages
+    for the test: wt103-47m-dense with its FFN swapped to PKM."""
+    cfg = build_model("wt103-47m-dense", ffn="pkm").cfg
+    monkeypatch.setitem(archs._REGISTRY, "pkm-test", lambda: cfg)
+    monkeypatch.setitem(jax_archs._REGISTRY, "pkm-test",
+                        lambda: jax_get_config("wt103-47m-dense").with_ffn(
+                            JaxFFNConfig(**dataclasses.asdict(cfg.ffn))))
+    got, want = reduced("pkm-test"), jax_reduced("pkm-test")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.ffn.kind == "pkm" and got.ffn.n_subkeys == 8 and _validates(got.ffn)

@@ -109,7 +109,10 @@ def test_ffn_registry_matches_reference():
     moe = _f32(reduced("wt103-262m-moe")).ffn
     cfgs = {"dense": FFNConfig(kind="dense", d_ff=128), "glu":
             FFNConfig(kind="glu", d_ff=128, activation="gelu"),
-            "none": FFNConfig(kind="none"), "sigma_moe": moe}
+            "none": FFNConfig(kind="none"), "sigma_moe": moe,
+            "topk": FFNConfig(kind="topk", d_ff=128, topk_k=16, impl="einsum"),
+            "pkm": FFNConfig(kind="pkm", n_subkeys=8, pkm_heads=2, pkm_knn=4,
+                             impl="einsum")}
     for kind, cfg in cfgs.items():
         jcfg = JaxFFNConfig(**dataclasses.asdict(cfg))
         jp = jffn.init_ffn(jax.random.PRNGKey(4), D, jcfg, 3)
@@ -125,9 +128,8 @@ def test_ffn_registry_matches_reference():
         got = ffn.init_ffn(torch.Generator().manual_seed(0), D, cfg, 3, device="cpu")
         assert shapes(got) == shapes(jax.tree_util.tree_map(np.asarray, jp)), kind
     assert set(ffn.FFN_REGISTRY) == set(jffn.FFN_REGISTRY)
-    items = {"switch": "item 1", "sbase": "item 1", "noisy_topk": "item 1",
-             "topk": "item 4", "pkm": "item 4"}
-    for kind, item in items.items():
+    for kind, item in {"switch": "item 1", "sbase": "item 1",
+                       "noisy_topk": "item 1"}.items():
         cfg = dataclasses.replace(moe, kind=kind)
         with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
             ffn.init_ffn(torch.Generator(), D, cfg, 3, device="cpu")
