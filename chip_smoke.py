@@ -7,7 +7,9 @@ Phases (any failure exits non-zero before the result line). 1-6 are the
 serving slice, 7-10 the training slice on the fused rung, 11-14 training on
 the unfused rung, 15-18 K7 and the long-prompt serving run, A-E the paper's
 dense/sigma-MoE pairs, their eval step and checkpoint/resume, F-H the
-paper's PKM and top-K MLP on K6, forward and backward:
+paper's PKM and top-K MLP on K6, forward and backward, I-K the paper's MoE
+baselines (Switch, S-BASE, noisy top-k), the capacity dispatch and the
+trainer's gradient accumulation, compression and remat:
 
 1. the card: torch's device name and nvidia-smi's name and power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
@@ -153,9 +155,31 @@ H. the main path: ``python -m repro_torch.launch.train --arch
    with one K6 device kernel per wrapper call, parameter counts equal to
    the reference's, and for PKM the share of the values the last batch
    selected (``collect_stats``; no gate);
+I. gates: the capacity ("einsum") dispatch on one wt103-47m-moe layer (32 x
+   257 tokens) at a capacity that drops nothing, against the sort path's
+   kernels on the same routing (bf16 3e-2 and 1e-2 normwise, float32
+   1e-4); its dropped share at capacity factors 1.25 and 0.25 equal to a
+   host count of the overflow; one full-depth float32 step of S-BASE and of
+   noisy top-k, kernels against plain versions on pinned routing (phase 8's
+   float32 gate, 2e-3 a leaf); under deterministic algorithms with dropout
+   on, ``remat`` "full" and "dots" gradients bit-equal to the plain step's,
+   the generator ending in the same state, with exact launches;
+J. the baselines trained: S-BASE, noisy top-k and Switch (``BASELINES``,
+   built in process) and ``python -m repro_torch.launch.train --arch
+   wt103-47m-dense --ffn sigma_moe`` (the capacity dispatch), 30 steps at
+   batch 32 x 256, full width and depth: finite, falling loss, exact
+   launches every step (2 K1, 1 K2, 2 K3, 1 K4 a layer on the sort
+   dispatch, none on the capacity dispatch), the dropped share, parameter
+   counts equal to the reference's, and a profiled step;
+K. the trainer's options on wt103-47m-moe, 10 steps each: ``--grad-accum 2``
+   (twice the launches), ``--grad-compression int8`` (every residual within
+   half a quantization step) and ``bf16``, ``--remat full`` and ``dots`` (3
+   K1, 2 K2, 2 K3, 1 K4 a layer; peak memory beside phase 9's, full below
+   it): finite, falling loss and exact launches every step;
 19. one ``{"kernels": [...]}`` JSON line (with A's wt103-262m-moe rows of
-    K1, K2, K3 and K4, their launches from C, and K6's rows at F's shapes,
-    their launches from H), then the device line last.
+    K1, K2, K3 and K4, their launches from C, K6's rows at F's shapes,
+    their launches from H, and the K1-K4 rows' launches in J's and K's
+    runs), then the device line last.
 
 With ``--out``, the full results (every phase's numbers and the ptxas
 reports) are also written there as JSON.
@@ -206,10 +230,31 @@ PAIR = dict(batch=16, seq=512, steps=30, eval_batches=4)
 PAPER_PARAMS = {"wt103-262m-dense": 262_772_736, "wt103-262m-moe": 262_846_464,
                 "enwik8-41m-dense": 41_518_080, "enwik8-41m-moe": 41_554_944,
                 "wt103-47m-dense": 47_370_872, "wt103-47m-dense --ffn pkm": 34_839_480,
-                "wt103-47m-dense --ffn topk": 47_370_872}
+                "wt103-47m-dense --ffn topk": 47_370_872,
+                "wt103-47m-moe sbase": 47_410_424, "wt103-47m-moe noisy_topk": 47_515_896,
+                "wt103-47m-moe switch": 47_331_320,
+                "wt103-47m-dense --ffn sigma_moe": 47_410_424}
 # The reference's parameter counts (jax.eval_shape of its LM.init;
-# tests/test_torch_paper_configs.py and, for the swaps,
-# tests/test_torch_ffn_swap.py hold the port's counts to them).
+# tests/test_torch_paper_configs.py, for the swaps
+# tests/test_torch_ffn_swap.py, and for the baselines and the sigma-MoE swap
+# tests/test_torch_trainer_options.py hold the port's counts to them).
+BASELINES = {
+    "sbase": dict(kind="sbase"),
+    "noisy_topk": dict(kind="noisy_topk", selector_activation="softmax", renormalize=True,
+                       reg_kind="cv", reg_gamma=1e-2),
+    "switch": dict(kind="switch", n_experts=4, expert_size=512, k=1, d_ff=2048,
+                   selector_activation="softmax", reg_kind="switch", reg_gamma=1e-2,
+                   dispatch="einsum", capacity_factor=1.25)}
+# Phases I-J: the paper's MoE baselines (Tab. 4), each wt103-47m-moe's FFN
+# with these fields replaced (dataclasses.replace). S-BASE and noisy top-k
+# keep its 16 experts of 128, top-4, on the sort dispatch (8 Sinkhorn
+# iterations; softmax gates renormalized, router noise, cv regularizer
+# 1e-2). Switch keeps its 2,048 expert channels and 512 active ones as
+# table4_ablations.py pairs them: 4 experts of 512, top-1, softmax, switch
+# regularizer 1e-2, capacity factor 1.25 on the capacity dispatch.
+BASE_RUN = dict(arch="wt103-47m-moe", batch=32, seq=256, steps=30, option_steps=10)
+# Phases J and K: phase 9's model and batch; the FFN runs 30 steps, the
+# trainer options (gradient accumulation, compression, remat) 10 each.
 SWAP = dict(arch="wt103-47m-dense", kinds=("pkm", "topk"), batch=32, seq=256, steps=30,
             eval_batches=4)
 # Phases F-H: the paper's top-K MLP and PKM (Sec. 3.1, 3.2) swapped into the
@@ -218,7 +263,7 @@ SWAP = dict(arch="wt103-47m-dense", kinds=("pkm", "topk"), batch=32, seq=256, st
 # layer call sees 32 x 257 tokens.
 RESUME = dict(arch="wt103-47m-moe", batch=32, seq=256, steps=12, every=6)
 # Phase E: phase 9's model and batch, checkpointed every 6 of 12 steps.
-LONG = dict(arch="granite-moe-3b-a800m", requests=32, prompt=3500, max_new=32,
+LONG = dict(arch="granite-moe-3b-a800m", requests=16, prompt=3500, max_new=32,
             max_batch=4, max_len=4096, page_size=16, prefill_chunk=256, burst_steps=8)
 # serve-long (phase 16): retrieval-augmented QA over long documents, where
 # prefill attention, not decode, sets the time to the first token. Lengths
@@ -226,8 +271,9 @@ LONG = dict(arch="granite-moe-3b-a800m", requests=32, prompt=3500, max_new=32,
 # (HotpotQA, 2WikiMQA, MuSiQue) as its harness runs a 4k-context model:
 # prompts cut to 3,500 tokens (config/model2maxlen.json), at most 32 new
 # tokens (config/dataset2maxlen.json). max_len is granite's 4,096 context.
-# Each task has 200 requests; 32 keep the script, with phases A-E, inside
-# half its time limit (64 took 250-463 s alone, host-bound).
+# Each task has 200 requests; 16 keep the script, with phases A-K, inside
+# half its time limit (64 took 250-463 s alone, host-bound; 32 took 160-189
+# s, which with phases I-K passed half the limit).
 SERVE_E, SERVE_D, SERVE_G = 40, 1536, 512      # granite-moe-3b-a800m's MoE widths
 K4_CASES = [(5120, SERVE_D, SERVE_G, "decode"), (5120, SERVE_G, SERVE_D, "decode"),
             (10240, SERVE_D, SERVE_G, "decode"), (5120, SERVE_D, SERVE_G, "random"),
@@ -470,6 +516,9 @@ def main() -> None:
     # ------------------------- F-H. PKM and the top-K MLP on K6, trained
     swap_rows = _swap_slice(args.seed, dev, gen, K, results)
 
+    # ----------------- I-K. the MoE baselines and the trainer's options
+    new_paths = _baselines_slice(args.seed, dev, gen, K, results, results["training"])
+
     # ------------------------------------------------------------ 19. report
     def row(kernel, shape, source, replaces):
         t = next(t for t in timings if t["kernel"] == kernel and t["shape"] == shape
@@ -500,6 +549,11 @@ def main() -> None:
         for t in timings if t["kernel"] == "gather_rows" and t["dtype"] == "bfloat16"
         and t["path"] == "serve-long prefill chunk"]
     k6["launches_serve_long"] = results["serve_long"]["launches"]["gather_rows"]
+    for row_, kernel in ((train["rows"]["fused_w1"], "fused_w1"),
+                         (train["rows"]["fused_w2"], "fused_w2"),
+                         (train["rows"]["dw_streamed"], "dw_streamed"), (k4, "cvmm")):
+        row_["launches_baselines_and_options"] = {
+            path: counts[kernel] for path, counts in new_paths.items()}
     line = {"kernels": [
         train["rows"]["fused_w1"], train["rows"]["fused_w2"],
         train["rows"]["dw_streamed"], k4, train["rows"]["cvmm_dw"], k6, k7_row,
@@ -1517,6 +1571,353 @@ def _phase_h(seed, dev, K, ops):
     return runs
 
 
+def _baselines_slice(seed, dev, gen, K, results, fused):
+    """Phases I-K: the paper's MoE baselines and the trainer's options. I:
+    the capacity dispatch against the sort path's kernels, its dropped
+    share, one float32 step of S-BASE and of noisy top-k with the kernels
+    against their plain versions, remat's gradients; J: the three
+    baselines and the sigma-MoE swap trained; K: gradient accumulation,
+    compression and remat through the trainer (``fused`` is phase 9's run,
+    remat's "none"). Returns each run's kernel launches, for the kernels
+    line."""
+    import torch
+    from repro_torch.core import routing
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    results["phaseI"] = _phase_i(seed, dev, gen, K, ops, routing)
+    torch.cuda.empty_cache()
+    print(f"[I] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    runs = results["phaseJ"] = _phase_j(seed, dev, K, ops)
+    torch.cuda.empty_cache()
+    print(f"[J] took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    options = results["phaseK"] = _phase_k(seed, dev, K, fused)
+    print(f"[K] took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {name: run["launches"] for name, run in {**runs, **options}.items()
+            if "launches" in run}
+
+
+def _baseline(kind, **overrides):
+    """wt103-47m-moe with its FFN made the ``kind`` baseline
+    (``BASELINES``)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(BASE_RUN["arch"]).override(**overrides)
+    return cfg.with_ffn(dataclasses.replace(cfg.ffn, **BASELINES[kind]))
+
+
+def _per_layer(layers, k1, k2, k3, k4):
+    """Every launch count at 0 but K1-K4's, ``layers`` times the given."""
+    import repro_torch.kernels.cvmm as K
+    return dict.fromkeys(K.LAUNCHES, 0) | {
+        "fused_w1": k1 * layers, "fused_w2": k2 * layers, "dw_streamed": k3 * layers,
+        "cvmm": k4 * layers}
+
+
+def _phase_i(seed, dev, gen, K, ops, routing):
+    """Phase I, the gates. (1) One wt103-47m-moe layer on phase 9's 32 x
+    257 tokens: the capacity dispatch at a capacity that drops nothing
+    against the sort path's kernels on the same routing (bf16 3e-2 and
+    normwise 1e-2, float32 1e-4), launching no kernel itself; (2) at
+    capacity factors 1.25 and 0.25, the dropped share equal to a host count
+    of each expert's overflow; (3) one full-depth float32 step of S-BASE and
+    of noisy top-k (phase 8's three_steps), the kernels against their plain
+    versions on pinned routing, each gradient leaf and loss within 2e-3, with
+    exact launches; (4) under deterministic algorithms, with dropout on, a
+    bf16 step's gradients under remat "full" and "dots" bit-equal to the
+    plain step's, the generator ending where the plain step's does, and
+    exact launches (the recomputation relaunches K1 and K2)."""
+    import torch
+    from repro_torch.common import cdiv, map_leaves
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.core import dispatch, moe
+    from repro_torch.data import DataIterator, make_dataset
+    from repro_torch.models import build_model
+    from repro_torch.runtime import init_train_state
+
+    out = {}
+    cfg = get_config(BASE_RUN["arch"])
+    f, d, layers = cfg.ffn, cfg.d_model, cfg.n_layers
+    n, E, k = BASE_RUN["batch"] * (BASE_RUN["seq"] + 1), f.n_experts, f.k
+    params = moe.init_moe(torch.Generator(device=dev).manual_seed(seed), d, f, layers,
+                          device=dev)
+    x32 = torch.randn((n, d), generator=gen, device=dev)
+    for dn, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        x = x32.to(dt)
+        with torch.no_grad():
+            info = moe._route(params, x, f, E, None, False)
+            counts = torch.bincount(info.idx.reshape(-1), minlength=E).tolist()
+            K.reset_launch_counts()
+            ys, _ = moe.apply_moe(params, x, f)
+            sort_launches = dict(K.LAUNCHES)
+            roomy = dataclasses.replace(f, dispatch="einsum",
+                                        capacity_factor=(max(counts) + 1) / cdiv(n * k, E))
+            K.reset_launch_counts()
+            ye, aux = moe.apply_moe(params, x, roomy)
+            einsum_launches = dict(K.LAUNCHES)
+        ok, err, rel, lim = close(ye, ys, TOL[dn], dn, ulps=False)
+        print(f"[I] capacity dispatch (capacity {dispatch._capacity(n, k, E, roomy.capacity_factor)}"
+              f" >= the busiest expert's {max(counts)} rows) against the sort path's kernels, "
+              f"{dn}, {n} tokens: max_abs_err {err:.3g}, normwise {rel:.3g} ({lim}); dropped "
+              f"{float(aux['moe_dropped'])}; launches sort {sort_launches}, capacity "
+              f"{einsum_launches}: {'ok' if ok else 'BAD'}")
+        if not ok or float(aux["moe_dropped"]) != 0.0:
+            fail(f"the capacity dispatch disagrees with the sort path's kernels ({dn})")
+        if (sort_launches != _per_layer(1, 1, 1, 0, 0) or any(einsum_launches.values())):
+            fail(f"launches: sort {sort_launches}, capacity {einsum_launches}")
+        out[f"capacity vs sort {dn}"] = {"max_abs_err": err, "normwise": rel}
+    for factor in (1.25, 0.25):         # on the last (float32) routing's loads
+        cap = dispatch._capacity(n, k, E, factor)
+        with torch.no_grad():
+            _, aux = moe.apply_moe(params, x, dataclasses.replace(
+                f, dispatch="einsum", capacity_factor=factor))
+        host = sum(max(0, c - cap) for c in counts) / (n * k)
+        got = float(aux["moe_dropped"])
+        print(f"[I] capacity factor {factor}: capacity {cap} rows an expert, loads {counts}; "
+              f"dropped {got:.6f}, host count of the overflow {host:.6f}")
+        if abs(got - host) > 1e-6:
+            fail(f"dropped share {got} != the host count {host} at factor {factor}")
+        out[f"dropped at {factor}"] = {"dropped": got, "host": host, "capacity": cap}
+    del params, x32, x
+
+    opt = OptimizerConfig(total_steps=3)
+    stream = DataIterator(make_dataset("synthetic", cfg.vocab_size), BASE_RUN["batch"],
+                          BASE_RUN["seq"] + 1, seed=seed)
+    batches = [{"tokens": torch.as_tensor(stream.next()["tokens"], device=dev)}
+               for _ in range(3)]
+    three_steps = _three_steps_fn(batches, opt, seed, dev, batch=BASE_RUN["batch"])
+    tol = GRAD_TOL["float32"]
+    for kind in ("sbase", "noisy_topk"):
+        lm = build_model(_baseline(kind, dtype="float32"))
+        choices, (gk, lk), (gp, lp), launches = _kernels_and_plain(
+            "pallas_fused", lm, three_steps, K, ops, routing)
+        worst, leaf, median = _compare(gk, gp)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+        want = _per_layer(4 * layers, 2, 1, 2, 1)        # 4 forward and backward passes
+        print(f"[I] {kind}, float32, depth {layers}, full width, {len(gp)} gradient leaves, "
+              f"pinned routing: worst relative error {worst:.3g} at {leaf}, median "
+              f"{median:.3g}; losses kernels {lk} plain {lp}, worst relative {loss_err:.3g} "
+              f"(tol {tol}); launches {launches}")
+        if not (worst <= tol and loss_err <= tol):
+            fail(f"{kind}: the kernels' float32 step disagrees with the plain versions'")
+        if launches != want:
+            fail(f"{kind}: the step launched {launches}, expected {want}")
+        out[f"{kind} float32 step"] = {"worst_grad_rel": worst, "worst_leaf": leaf,
+                                       "median": median, "losses_kernels": lk,
+                                       "losses_plain": lp, "launches": launches}
+        del lm, gk, gp
+        torch.cuda.empty_cache()
+
+    remat = {}
+    with deterministic_algorithms("I remat"):
+        for mode in ("none", "full", "dots"):
+            lm = build_model(cfg, remat=mode)
+            state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
+                                     use_mems=True, batch=BASE_RUN["batch"], device=dev)
+            drop = torch.Generator(device=dev).manual_seed(seed + 1)
+            K.reset_launch_counts()
+            loss, _ = lm.loss(state["params"], batches[0], gen=drop, train=True,
+                              mems=state["mems"])
+            loss.backward()
+            launches = dict(K.LAUNCHES)
+            grads = {}
+            map_leaves(state["params"], lambda path, p: grads.setdefault(path, p.grad))
+            remat[mode] = (float(loss.detach()), grads, drop.get_state(), launches)
+            del lm, state, loss
+    l0, g0, s0, _ = remat["none"]
+    for mode, want in (("none", _per_layer(layers, 2, 1, 2, 1)),
+                       ("full", _per_layer(layers, 3, 2, 2, 1)),
+                       ("dots", _per_layer(layers, 3, 2, 2, 1))):
+        loss, grads, state, launches = remat[mode]
+        differ = [p for p in g0 if not same_bits(grads[p], g0[p])]
+        same_gen = bool(torch.equal(state, s0))
+        print(f"[I] remat {mode}, bf16, dropout {cfg.dropout}, deterministic algorithms: loss "
+              f"{loss} (none {l0}); {len(differ)} of {len(g0)} gradient leaves not bit-equal "
+              f"to none's; generator state equal {same_gen}; launches {launches}")
+        if differ or loss != l0 or not same_gen:
+            fail(f"remat {mode}: not bit-equal to the plain step ({differ[:3]})")
+        if launches != want:
+            fail(f"remat {mode}: launched {launches}, expected {want}")
+        out[f"remat {mode}"] = {"loss": loss, "not_bit_equal": len(differ),
+                                "launches": launches}
+    del remat, g0
+    return out
+
+
+def _train_in_process(lm, seed, dev):
+    """``launch.train.main``'s loop and numbers for a model that has no
+    ``--arch``/``--ffn`` name (the baselines): BASE_RUN's steps, batch and
+    sequence, the synthetic stream of ``seed``, dropout from ``seed + 1``,
+    the trainer's optimizer; the step ends in a host read of the loss."""
+    import torch
+    from repro_torch.common import tree_leaves
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.data import DataIterator, make_dataset
+    from repro_torch.kernels import cvmm as K
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    b, s, steps = BASE_RUN["batch"], BASE_RUN["seq"], BASE_RUN["steps"]
+    opt = OptimizerConfig(total_steps=steps)
+    stream = DataIterator(make_dataset("synthetic", lm.cfg.vocab_size), b, s + 1, seed=seed)
+    state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
+                             use_mems=True, batch=b, device=dev)
+    step, gen = make_train_step(lm, opt), torch.Generator(device=dev).manual_seed(seed + 1)
+    out = {"losses": [], "step_s": [], "launches": [], "moe_dropped": [],
+           "tokens_per_step": b * s,
+           "n_params": sum(p.numel() for p in tree_leaves(state["params"]))}
+    for _ in range(steps):
+        batch = {"tokens": torch.as_tensor(stream.next()["tokens"], device=dev)}
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        out["losses"].append(float(m["loss"]))
+        out["step_s"].append(time.perf_counter() - t0)
+        out["launches"].append({key: K.LAUNCHES[key] - before[key] for key in before})
+        out["moe_dropped"].append(float(m["moe_dropped"]))
+    return out
+
+
+def _phase_j(seed, dev, K, ops):
+    """Phase J: S-BASE, noisy top-k and Switch (``BASELINES``, in process)
+    and the sigma-MoE swap (``python -m repro_torch.launch.train --arch
+    wt103-47m-dense --ffn sigma_moe``), BASE_RUN's 30 steps each at full
+    width and depth: finite, falling loss, exact launches every step (2 K1,
+    1 K2, 2 K3 and 1 K4 a layer on the sort dispatch, none on the capacity
+    dispatch), the dropped share, parameter counts equal to the
+    reference's, and a profiled step."""
+    import types
+
+    import torch
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.data import DataIterator, make_dataset
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    runs = {}
+    b, s = BASE_RUN["batch"], BASE_RUN["seq"]
+    for name in ("sbase", "noisy_topk", "switch", "--ffn sigma_moe"):
+        if name.startswith("--ffn"):
+            key, arch = "wt103-47m-dense --ffn sigma_moe", "wt103-47m-dense"
+            lm = build_model(arch, ffn="sigma_moe")
+            argv = ["--arch", arch, "--ffn", "sigma_moe", "--steps", str(BASE_RUN["steps"]),
+                    "--batch", str(b), "--seq", str(s), "--seed", str(seed),
+                    "--device", dev.type]
+            cli = train_cli
+        else:
+            key = f"{BASE_RUN['arch']} {name}"
+            lm = build_model(_baseline(name))
+            argv = [f"(in process: {key}, batch {b} x seq {s}, {BASE_RUN['steps']} steps)"]
+            cli = types.SimpleNamespace(main=lambda argv, eval_batches=0, lm=lm:
+                                        _train_in_process(lm, seed, dev))
+        layers = lm.cfg.n_layers
+        sort = lm.cfg.ffn.dispatch == "sort"
+        want = _per_layer(layers, 2, 1, 2, 1) if sort else dict.fromkeys(K.LAUNCHES, 0)
+        run = _train_main_path("J", argv, want, K, cli)
+        _print_run("J", run)
+        dropped = [x / layers for x in run["moe_dropped_per_step"]]
+        print(f"[J] {key}: {run['n_params']:,} params (reference {PAPER_PARAMS[key]:,}); "
+              f"{lm.cfg.ffn.dispatch} dispatch; dropped share of the (token, expert) pairs, "
+              f"mean over the layers, every fifth step: "
+              f"{[round(x, 5) for x in dropped[::5]]}", flush=True)
+        if run["n_params"] != PAPER_PARAMS[key]:
+            fail(f"{key}: {run['n_params']} parameters, the reference has {PAPER_PARAMS[key]}")
+        if sort and any(dropped):
+            fail(f"{key}: the dropless sort dispatch reported drops {dropped}")
+        run["dropped"] = dropped
+        torch.cuda.empty_cache()
+        opt = OptimizerConfig(total_steps=BASE_RUN["steps"])
+        stream = DataIterator(make_dataset("synthetic", lm.cfg.vocab_size), b, s + 1,
+                              seed=seed + 7)
+        pstate = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
+                                  use_mems=True, batch=b, device=dev)
+        run["profile"], _ = _profile_train_step(
+            "J", lm, pstate, {"tokens": torch.as_tensor(stream.next()["tokens"], device=dev)},
+            make_train_step(lm, opt), dev, K, ops)
+        del lm, pstate
+        torch.cuda.empty_cache()
+        runs[key] = run
+    return runs
+
+
+def _phase_k(seed, dev, K, fused):
+    """Phase K: the trainer's options on wt103-47m-moe at phase 9's batch,
+    10 steps each through ``python -m repro_torch.launch.train``:
+    ``--grad-accum 2`` (microbatches of 16, memories of 16 rows; twice the
+    launches), ``--grad-compression int8`` and ``bf16`` (every int8
+    residual within half a quantization step of its stacked leaf, from the
+    last step's compressed gradients), ``--remat full`` and ``dots`` (3 K1,
+    2 K2, 2 K3 and 1 K4 a layer) with their peak memory beside phase 9's
+    (no remat), full below it. Each: finite, falling loss and exact
+    launches every step."""
+    import torch
+    from repro_torch.common import map_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.compress import stacked_path
+    from repro_torch.runtime import steps as steps_mod
+
+    layers = get_config(BASE_RUN["arch"]).n_layers
+    base = ["--arch", BASE_RUN["arch"], "--steps", str(BASE_RUN["option_steps"]), "--batch",
+            str(BASE_RUN["batch"]), "--seq", str(BASE_RUN["seq"]), "--seed", str(seed),
+            "--device", dev.type]
+    plain, remat = _per_layer(layers, 2, 1, 2, 1), _per_layer(layers, 3, 2, 2, 1)
+    options = {"--grad-accum 2": _per_layer(2 * layers, 2, 1, 2, 1),
+               "--grad-compression int8": plain, "--grad-compression bf16": plain,
+               "--remat full": remat, "--remat dots": remat}
+    runs = {}
+    compress = steps_mod.compress_grads
+    for option, want in options.items():
+        last = {}
+
+        def capture(grads, err, mode):
+            last["in"] = (grads, err)
+            return compress(grads, err, mode)
+
+        steps_mod.compress_grads = capture
+        try:
+            run = _train_main_path("K", base + option.split(), want, K, train_cli,
+                                   keep_state=True)
+        finally:
+            steps_mod.compress_grads = compress
+        state = run.pop("state")
+        _print_run("K", run)
+        if option.endswith("int8"):
+            grads, err_in = last["in"]
+            totals, absmax = {}, {}
+            map_leaves(grads, lambda path, g: totals.setdefault(path, g))
+            map_leaves(err_in, lambda path, e: totals.__setitem__(
+                path, (totals[path].float() + e).abs().max()))
+            for path, top in totals.items():
+                key = stacked_path(path)
+                absmax[key] = max(absmax.get(key, 0.0), float(top))
+            worst = []
+            map_leaves(state["err"], lambda path, e: worst.append(
+                (float(e.abs().max()) / (absmax[stacked_path(path)] / 254), path)))
+            ratio, path = max(worst)
+            print(f"[K] int8 residuals after step {BASE_RUN['option_steps'] - 1}: the largest "
+                  f"|err| is {ratio:.6f} of half a quantization step (absmax/254 of its stacked "
+                  f"leaf's g + e), at {'/'.join(map(str, path))}; {len(worst)} leaves")
+            if ratio > 1 + 1e-5:
+                fail(f"an int8 residual exceeds half a quantization step ({ratio} at {path})")
+            run["err_worst_of_half_step"] = ratio
+        del state
+        last.clear()
+        torch.cuda.empty_cache()
+        runs[option] = run
+    peak = {"none (phase 9)": fused["max_memory_allocated"],
+            "dots": runs["--remat dots"]["max_memory_allocated"],
+            "full": runs["--remat full"]["max_memory_allocated"]}
+    print(f"[K] peak memory (max_memory_allocated) by remat: "
+          f"{ {k: round(v / 2**30, 2) for k, v in peak.items()} } GiB")
+    if not peak["full"] < peak["none (phase 9)"]:
+        fail(f"--remat full did not lower the peak memory: {peak}")
+    return runs | {"peak_by_remat": peak}
+
+
 def _corpus_files():
     """The byte corpus's files, sorted: the Python sources under src/ and
     tests/ and the top-level Markdown files. The same list in a git checkout
@@ -2077,11 +2478,12 @@ def _train_main_path(tag, argv, want, K, train_cli, label="", eval_batches=0,
             "launches": launches, "launches_per_step": out["launches"][-1],
             "n_params": out["n_params"], "first5": first, "last5": last,
             "eval_losses": out.get("eval_losses"), "eval_ce": out.get("eval_ce"),
+            "moe_dropped_per_step": out.get("moe_dropped"),
             **({"state": out["state"]} if keep_state else {})}
 
 
 def _print_run(tag, run):
-    print(f"[{tag}] step {run['step_ms']:.2f} ms (mean of steps 5-{TRAIN['steps'] - 1}, "
+    print(f"[{tag}] step {run['step_ms']:.2f} ms (mean of steps 5-{len(run['step_s']) - 1}, "
           f"min {run['step_ms_min']:.2f}, max {run['step_ms_max']:.2f}); "
           f"{run['tokens_per_s']:.0f} tokens/s; max_memory_allocated "
           f"{run['max_memory_allocated'] / 2**30:.2f} GiB")

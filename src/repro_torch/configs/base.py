@@ -5,9 +5,8 @@ config built here equals the reference's field by field).
 Everything is a frozen dataclass; ``cfg.override(**kw)`` and
 ``cfg.with_ffn(ffn)`` produce variants. Pure data: no torch import.
 ``FFN_KINDS`` and ``FFN_IMPLS`` are the reference's names; the port runs
-the kinds in ``models/ffn.FFN_REGISTRY`` that do not raise, and only
-attention mixers. ``OptimizerConfig`` is the reference's, for the trainer
-(``runtime/steps``).
+every kind (``models/ffn.FFN_REGISTRY``), and only attention mixers.
+``OptimizerConfig`` is the reference's, for the trainer (``runtime/steps``).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Selection -> planned execution (the reference's ``core/dispatch.py``,
-sort dispatch only): the MoE expert MLP and the weighted value sum.
+on one device): the MoE expert MLP and the weighted value sum.
 
 ``weighted_value_sum`` is the aggregation the paper's row-selecting
 approximators share: PKM's values (``core/pkm.py``) and the top-K MLP's W2
@@ -16,10 +16,15 @@ rows each token takes and their weights. ``value_sum_path`` picks the rung:
                 "auto" on the CPU, where "ragged" is the default. CPU
                 only, as is "dense": on CUDA they raise.
 
-``expert_mlp`` runs one MoE layer's experts at a fixed selection. Within
-the "sort" dispatch (the paper's dropless CVMM) ``resolve_impl`` names an
-impl and ``ops.plan_sort_kernels`` turns it into the rung, as in the
-reference:
+``expert_mlp`` runs one MoE layer's experts at a fixed selection, by the
+config's ``dispatch``. "einsum" is the GShard capacity path
+(``_einsum_path``): each expert takes at most ``_capacity`` (token, expert)
+pairs in selection order into an (E, C, d) buffer, the rest are dropped
+and reported, and three batched products (``torch.bmm``, as the
+reference's einsums, which no Pallas kernel computes) run the experts.
+Within the "sort" dispatch (the paper's dropless CVMM) ``resolve_impl``
+names an impl and ``ops.plan_sort_kernels`` turns it into the rung, as in
+the reference:
 
   pallas_fused   the fused pipeline (``ops.moe_mlp_fused``): one CvmmPlan
                  per call, K1 and K2 forward, K1, K3 and K4 backward.
@@ -37,8 +42,9 @@ On the CPU the kernel rungs run the kernels' plain versions. The reference's ``*
 Serving installs a decode provider (``set_decode_provider``) that claims
 small calls and runs them on a cached routing-free DecodePlan
 (``ops.moe_mlp_decode``). The reference also pins the sort path to
-replicated under an active device mesh; the port has no mesh yet, so that
-check is absent. The "einsum" and "shard_map" dispatches are not ported.
+replicated under an active device mesh and constrains the capacity
+buffers to expert sharding; the port has no mesh yet, so neither is
+there, and the "shard_map" dispatch raises (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from ..common import act_fn
+from ..common import act_fn, cdiv, round_up
 from ..configs.base import FFNConfig
 from ..kernels import ops as kops
 from .routing import SelectionInfo
@@ -183,6 +189,69 @@ def _sort_path(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
     return torch.zeros_like(xf).index_add_(0, src, y_sorted)
 
 
+def _capacity(n_tokens: int, k: int, e: int, factor: float,
+              multiple: int = 8) -> int:
+    """Rows of each expert's capacity buffer: ``factor`` times the mean
+    load n*k/E, rounded up to ``multiple``."""
+    return max(multiple, round_up(int(cdiv(n_tokens * k, e) * factor), multiple))
+
+
+def _pack_capacity(xf: torch.Tensor, info: SelectionInfo, e: int, cap: int):
+    """Scatter the (token, k) pairs into an (E, C, d) buffer, each at its
+    rank among its expert's pairs in (token, k) order; pairs ranked at or
+    past ``cap`` are dropped: they go to slot (0, 0) with a zero row, as in
+    the reference, so the buffer is the reference's. Returns (buffer,
+    (tok, e_safe, p_safe, keep)).
+
+    The ranks come from a stable sort by expert (the reference takes a
+    cumulative sum over an (N*K, E) one-hot, a slow scan on the card), and
+    the buffer is built with ``index_add`` on its (E*C, d) rows, whose
+    atomic adds take the dropped pairs' zeros at slot (0, 0) without the
+    serial duplicate walk of ``index_put(accumulate=True)``."""
+    n, d = xf.shape
+    k = info.idx.shape[-1]
+    e_flat = info.idx.reshape(-1).long()
+    order = torch.argsort(e_flat, stable=True)
+    counts = torch.bincount(e_flat, minlength=e)
+    starts = torch.cumsum(counts, dim=0) - counts
+    pos = torch.empty_like(e_flat)
+    pos[order] = torch.arange(e_flat.numel(), device=xf.device) - starts[e_flat[order]]
+    keep = pos < cap
+    tok = torch.arange(n, device=xf.device).repeat_interleave(k)
+    e_safe = torch.where(keep, e_flat, 0)
+    p_safe = torch.where(keep, pos, 0)
+    rows = xf[tok] * keep[:, None].to(xf.dtype)
+    buf = xf.new_zeros((e * cap, d)).index_add(0, e_safe * cap + p_safe, rows)
+    return buf.view(e, cap, d), (tok, e_safe, p_safe, keep)
+
+
+def _combine_capacity(buf_out: torch.Tensor, info: SelectionInfo, meta,
+                      n: int) -> torch.Tensor:
+    """Each kept pair's output row times its gate, summed onto its token."""
+    tok, e_safe, p_safe, keep = meta
+    e, cap, d = buf_out.shape
+    g_flat = info.gates.reshape(-1)
+    rows = buf_out.reshape(e * cap, d).index_select(0, e_safe * cap + p_safe)
+    rows = rows * (g_flat * keep.to(g_flat.dtype))[:, None].to(rows.dtype)
+    return buf_out.new_zeros((n, d)).index_add(0, tok, rows)
+
+
+def _einsum_path(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
+                 info: SelectionInfo, e: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The capacity ("einsum") dispatch: pack, three batched products over
+    the (E, C, ·) buffers, combine. Returns (y (N, d), the dropped share of
+    the (token, k) pairs, float32)."""
+    n, d = xf.shape
+    cap = _capacity(n, cfg.k, e, cfg.capacity_factor)
+    buf, meta = _pack_capacity(xf, info, e, cap)
+    h = torch.bmm(buf, params["we1"].to(xf.dtype))
+    hg = torch.bmm(buf, params["we1g"].to(xf.dtype)) if cfg.glu_experts else None
+    buf_out = torch.bmm(_expert_ffn(cfg, h, hg), params["we2"].to(xf.dtype))
+    y = _combine_capacity(buf_out, info, meta, n)
+    dropped = 1.0 - torch.mean(meta[3].float())
+    return y, dropped
+
+
 # Serving-layer decode fast path: the engine (repro_torch.serving) installs a
 # provider while it runs; a provider that claims a call returns y, one that
 # declines returns None and the regular sort path runs. Inference only.
@@ -198,12 +267,15 @@ def set_decode_provider(fn) -> None:
 
 def expert_mlp(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
                info: SelectionInfo, e: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Planned execution of one MoE layer's expert MLP at a fixed selection.
-    Returns (y (N, d), dropped fraction)."""
-    if cfg.dispatch != "sort":
+    """Planned execution of one MoE layer's expert MLP at a fixed selection,
+    by ``cfg.dispatch``: "sort" (dropless, the kernels' path) or "einsum"
+    (capacity). Returns (y (N, d), dropped fraction)."""
+    if cfg.dispatch == "shard_map":
         raise NotImplementedError(
-            f"dispatch={cfg.dispatch!r}: the port runs the dropless 'sort' "
-            "dispatch only")
+            "dispatch='shard_map' (expert parallelism over a device mesh) is "
+            "not ported yet (ROADMAP queue 1 item 8)")
+    if cfg.dispatch != "sort":
+        return _einsum_path(params, xf, cfg, info, e)
     zero = torch.zeros((), device=xf.device)
     if _DECODE_PROVIDER is not None:
         y = _DECODE_PROVIDER(params, xf, cfg, info, e)

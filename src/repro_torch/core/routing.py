@@ -1,10 +1,13 @@
 """Expert selection (the reference's ``core/routing.py``): the softmax and
-sigmoid selectors with top-k, expert dropout in training, and PKM's
-two-stage product-key top-K. Noisy gating, Sinkhorn and S-BASE are not
-ported yet.
+sigmoid selectors with top-k, expert dropout and Shazeer's noisy gating in
+training, S-BASE's Sinkhorn-balanced routing, and PKM's two-stage
+product-key top-K.
 
-``select_experts(logits, cfg) -> SelectionInfo`` with ``gates``/``idx``
-(N, K) and the full selection distribution for the regularizers.
+``select_experts(logits, cfg) -> SelectionInfo`` (and
+``select_experts_sbase``) with ``gates``/``idx`` (N, K) and the full
+selection distribution for the regularizers. Random draws (expert dropout,
+gating noise) come from an explicit ``torch.Generator`` and differ from
+JAX's for the same seed.
 
 Top-k breaks ties toward the lower expert index, as ``jax.lax.top_k`` does:
 a stable descending sort, then a slice. ``torch.topk`` promises no order
@@ -12,9 +15,11 @@ among equal values, and bf16 softmax scores over 40 experts tie often.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import FFNConfig
 
@@ -60,6 +65,20 @@ def two_stage_topk(ua: torch.Tensor, ub: torch.Tensor, k: int,
     return top, sel_a, sel_b
 
 
+def sinkhorn(logits: torch.Tensor, n_iters: int = 8) -> torch.Tensor:
+    """Log-space Sinkhorn normalization (Clark et al. 2022, S-BASE): a
+    (N, E) soft assignment whose rows sum to 1 and whose columns sum to
+    N/E, in the dtype of ``logits`` (S-BASE passes float32)."""
+    n, e = logits.shape
+    f = logits.new_zeros((n, 1))                     # row potentials
+    g = logits.new_zeros((1, e))                     # column potentials
+    log_col = math.log(n / e)
+    for _ in range(n_iters):
+        g = log_col - torch.logsumexp(logits + f, dim=0, keepdim=True)
+        f = -torch.logsumexp(logits + g, dim=1, keepdim=True)
+    return torch.exp(logits + f + g)
+
+
 def expert_dropout_mask(gen: torch.Generator, n_experts: int, rate: float,
                         device="cuda") -> torch.Tensor:
     """Paper Eq. 22: Bernoulli(1 - rate) over whole experts, no rescaling.
@@ -67,18 +86,34 @@ def expert_dropout_mask(gen: torch.Generator, n_experts: int, rate: float,
     return torch.rand((n_experts,), generator=gen, device=device) < 1.0 - rate
 
 
+def _mask_padded(logits: torch.Tensor,
+                 n_valid_experts: Optional[int]) -> torch.Tensor:
+    """``logits`` with the experts at or past ``n_valid_experts`` set to
+    -1e9."""
+    e = logits.shape[1]
+    if n_valid_experts is None or n_valid_experts >= e:
+        return logits
+    valid = torch.arange(e, device=logits.device) < n_valid_experts
+    return torch.where(valid[None, :], logits, torch.full_like(logits, -1e9))
+
+
 def select_experts(logits: torch.Tensor, cfg: FFNConfig, *,
                    gen: Optional[torch.Generator] = None, train: bool = False,
+                   noise_logits: Optional[torch.Tensor] = None,
                    n_valid_experts: Optional[int] = None) -> SelectionInfo:
     """logits (N, E_padded) = x @ W3; experts at or past ``n_valid_experts``
-    are padding and masked out. In training with a generator and
-    ``cfg.expert_dropout`` > 0, whole experts are dropped from ``sel``."""
-    n, e = logits.shape
+    are padding and masked out. In training with a generator, noisy gating
+    (paper Eq. 13) adds N(0, 1) * softplus(``noise_logits``) to the masked
+    logits when ``noise_logits`` (N, E_padded) = x @ W4 is given, and with
+    ``cfg.expert_dropout`` > 0 whole experts are dropped from ``sel``; the
+    noise is drawn first, as in the reference."""
+    e = logits.shape[1]
     k = cfg.k
-    if n_valid_experts is not None and n_valid_experts < e:
-        valid = torch.arange(e, device=logits.device) < n_valid_experts
-        logits = torch.where(valid[None, :], logits,
-                             torch.full_like(logits, -1e9))
+    logits = _mask_padded(logits, n_valid_experts)
+    if noise_logits is not None and train and gen is not None:
+        noise = torch.randn(logits.shape, generator=gen, device=logits.device,
+                            dtype=logits.dtype)
+        logits = logits + noise * F.softplus(noise_logits)
     probs = torch.softmax(logits, dim=-1)
 
     act = cfg.selector_activation
@@ -99,4 +134,29 @@ def select_experts(logits: torch.Tensor, cfg: FFNConfig, *,
         gates, idx = top_k(sel, k)
         if cfg.renormalize:
             gates = gates / (torch.sum(gates, dim=-1, keepdim=True) + 1e-9)
+    return SelectionInfo(probs=probs, sel=sel, idx=idx, gates=gates)
+
+
+def select_experts_sbase(logits: torch.Tensor, cfg: FFNConfig, *,
+                         train: bool = False,
+                         n_valid_experts: Optional[int] = None) -> SelectionInfo:
+    """S-BASE (Clark et al. 2022, as the paper reimplements it, Sec. 4).
+    Training: route by the top-k of the Sinkhorn-balanced float32 scores,
+    with padded experts masked before and after Sinkhorn; the gates are
+    sigmoid(logits) at the chosen experts (Eq. 18). Eval: the top-k of the
+    sigmoid. The balanced scores only choose indices, so they are computed
+    without a gradient."""
+    e = logits.shape[1]
+    logits = _mask_padded(logits, n_valid_experts)
+    sel = torch.sigmoid(logits)
+    probs = torch.softmax(logits, dim=-1)
+    if train:
+        with torch.no_grad():
+            pi = sinkhorn(logits.float(), cfg.sinkhorn_iters).to(logits.dtype)
+            if n_valid_experts is not None and n_valid_experts < e:
+                pi[:, n_valid_experts:] = 0.0
+        _, idx = top_k(pi, cfg.k)
+        gates = torch.gather(sel, -1, idx)
+    else:
+        gates, idx = top_k(sel, cfg.k)
     return SelectionInfo(probs=probs, sel=sel, idx=idx, gates=gates)

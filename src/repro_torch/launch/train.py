@@ -2,25 +2,34 @@
 
     python -m repro_torch.launch.train --arch wt103-47m-moe --steps 30 \
         --batch 32 --seq 256 [--ffn KIND] [--reduced] [--device cpu] \
-        [--data synthetic|/path/corpus] \
+        [--data synthetic|/path/corpus] [--grad-accum N] \
+        [--grad-compression none|bf16|int8] [--remat none|dots|full] \
         [--ckpt-dir DIR [--ckpt-every N] [--keep N] [--resume]]
 
 The reference's ``launch/train.py`` on a single device: the same optimizer
 (AdamW, cosine schedule over ``--steps``, clipping at 0.25), the same data
 for a seed (the synthetic stream, or ``seq + 1``-byte windows of a local
 byte corpus; ``--seq`` next-token targets a row), and XL memories carried
-across steps. Parameters come from ``--seed``, dropout from ``--seed + 1``.
-Every step's loss is printed with its wall time (the step ends in a host
-read of the loss); a straggler monitor flags slow steps; kernel launches
-per step are printed once at the end.
+across steps. ``--grad-accum N`` splits each batch into N microbatches
+whose float32 gradients are averaged, with the XL memories sized for one
+microbatch (``batch / N`` rows) and carried from each to the next, as the
+reference's scan carries them; ``--grad-compression`` sends the clipped
+gradient through bf16 or int8 with error feedback
+(``optim.compress_grads``); ``--remat`` recomputes each block in the
+backward ("full"), or all but its matrix products ("dots"). Parameters
+come from ``--seed``, dropout from ``--seed + 1``. Every step's loss is
+printed with its wall time (the step ends in a host read of the loss); a
+straggler monitor flags slow steps; kernel launches per step are printed
+once at the end.
 
 Fault tolerance, as in the reference: with ``--ckpt-dir``, every state leaf
-(parameters, AdamW moments and step, XL memories, the data iterator's
-state and the dropout generator's state) goes into one atomic checkpoint
-after every ``--ckpt-every`` steps (async) and after the last (blocking);
-``--resume`` restarts from the latest committed one, bit for bit where the
-device's arithmetic is deterministic. The port draws dropout from one
-stateful ``torch.Generator`` (the reference folds the step into a pure
+(parameters, AdamW moments and step, compression residuals, XL memories,
+the data iterator's state and the dropout generator's state) goes into
+one atomic checkpoint after every ``--ckpt-every`` steps (async) and
+after the last (blocking); ``--resume`` restarts from the latest
+committed one, bit for bit where the device's arithmetic is
+deterministic. The port draws dropout from one stateful
+``torch.Generator`` (the reference folds the step into a pure
 key), so its state is part of the checkpoint. Unlike the reference, the
 port writes no checkpoint without ``--ckpt-dir``. ``--fail-at-step``
 raises at that step, after waiting for a save in flight, to test restarts.
@@ -29,9 +38,8 @@ raises at that step, after waiting for a save in flight, to test restarts.
 rule (``models.build_model(ffn=)``): "sigma_moe", "topk", "pkm", "dense"
 or "glu". The top-K MLP's and PKM's value sums run K6 on CUDA, forward and
 backward (``ops.gathered_weighted_sum_dedup``). A swap to "sigma_moe"
-gives the reference's config, whose "einsum" dispatch the port does not
-run yet (ROADMAP queue 1 item 1), so the trainer refuses it before it
-builds anything.
+gives the reference's config, with the capacity ("einsum") dispatch,
+whose batched products are library GEMMs (no kernel of the port).
 
 The expert MLPs run on the sort path's rung for the device: the fused
 kernels on CUDA (K1, K2; backward K1, K3, K4). As in the reference, which
@@ -44,8 +52,7 @@ backward) is pinned around the call instead:
     finally:
         ops.set_default_impl(None)
 
-Multi-device meshes, gradient accumulation and compression, and remat are
-not ported yet.
+Multi-device meshes are not ported yet (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -61,8 +68,9 @@ def _checkpoint_tree(state: Dict, gen) -> Dict:
     tree = {"params": state["params"],
             "opt": {"step": opt.step, "mu": opt.mu, "nu": opt.nu},
             "rng": gen.get_state()}
-    if "mems" in state:
-        tree["mems"] = state["mems"]
+    for key in ("err", "mems"):
+        if key in state:
+            tree[key] = state[key]
     return tree
 
 
@@ -73,21 +81,22 @@ def _state_from_tree(tree: Dict, gen) -> Dict:
     opt = tree["opt"]
     state = {"params": tree["params"],
              "opt": OptState(step=opt["step"], mu=opt["mu"], nu=opt["nu"])}
-    if "mems" in tree:
-        state["mems"] = tree["mems"]
+    for key in ("err", "mems"):
+        if key in tree:
+            state[key] = tree[key]
     return state
 
 
 def main(argv: Optional[List[str]] = None, eval_batches: int = 0) -> Dict:
-    """Train; returns the run's numbers and its final state. With
+    """Train; returns the run's numbers (per step: loss, wall time, kernel
+    launches, and the dropped share of the (token, expert) pairs summed
+    over the MoE layers) and its final state. With
     ``eval_batches``, also the eval step's losses and cross-entropies on
     that many held-out batches (the data stream of ``--seed + 1000``)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="wt103-47m-moe")
     ap.add_argument("--ffn", default=None,
-                    help="swap FFN kind (topk|pkm|dense|glu; a swap to "
-                         "sigma_moe is refused: its 'einsum' dispatch is not "
-                         "ported, ROADMAP queue 1 item 1)")
+                    help="swap FFN kind (sigma_moe|topk|pkm|dense|glu)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke config of the arch")
     ap.add_argument("--steps", type=int, default=100)
@@ -95,6 +104,10 @@ def main(argv: Optional[List[str]] = None, eval_batches: int = 0) -> Dict:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=2.5e-4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "bf16", "int8"])
+    ap.add_argument("--remat", default="none", choices=["none", "dots", "full"])
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--data", default="synthetic",
                     help="'synthetic', or the path of a local byte corpus")
@@ -126,28 +139,31 @@ def main(argv: Optional[List[str]] = None, eval_batches: int = 0) -> Dict:
         raise SystemExit("no CUDA device: pass --device cpu to train on the CPU")
     if args.resume and args.ckpt_dir is None:
         raise SystemExit("--resume needs --ckpt-dir")
+    if args.grad_accum < 1 or args.batch % args.grad_accum:
+        raise SystemExit(f"--batch {args.batch} does not split into --grad-accum "
+                         f"{args.grad_accum} microbatches")
     cfg = reduced(args.arch) if args.reduced else get_config(args.arch)
-    model = build_model(cfg, ffn=args.ffn)
+    model = build_model(cfg, ffn=args.ffn, remat=args.remat)
     cfg = model.cfg
-    if cfg.ffn.kind == "sigma_moe" and cfg.ffn.dispatch != "sort":
-        raise SystemExit(
-            f"--ffn {args.ffn} gives dispatch={cfg.ffn.dispatch!r}, which the "
-            "port does not run yet (ROADMAP queue 1 item 1); train an arch "
-            "whose own FFN is sigma_moe instead")
-    opt_cfg = OptimizerConfig(lr=args.lr, total_steps=args.steps)
-    train_step = make_train_step(model, opt_cfg)
+    opt_cfg = OptimizerConfig(lr=args.lr, total_steps=args.steps,
+                              grad_accum=args.grad_accum,
+                              grad_compression=args.grad_compression)
+    train_step = make_train_step(model, opt_cfg, grad_accum=args.grad_accum)
     ds = make_dataset(args.data, cfg.vocab_size)
     it = DataIterator(ds, args.batch, args.seq + 1, seed=args.seed)
+    # The memories of one microbatch: the reference sizes them for the
+    # whole batch, on which its scan over microbatches fails.
     state = init_train_state(model, torch.Generator(device=dev).manual_seed(args.seed),
                              opt_cfg, use_mems=bool(cfg.xl_memory),
-                             batch=args.batch, device=dev)
+                             batch=args.batch // args.grad_accum, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
     print(f"[train] {cfg.name}{' (reduced)' if args.reduced else ''}: "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, ffn {cfg.ffn.kind}, "
           f"{n_params / 1e6:.2f} M "
           f"params, {model.dtype} compute; batch {args.batch} x seq {args.seq} "
-          f"on {dev}; data {args.data}", flush=True)
+          f"on {dev}; data {args.data}; grad accum {args.grad_accum}, compression "
+          f"{args.grad_compression}, remat {args.remat}", flush=True)
 
     mgr = (CheckpointManager(args.ckpt_dir, keep=args.keep)
            if args.ckpt_dir is not None else None)
@@ -163,7 +179,7 @@ def main(argv: Optional[List[str]] = None, eval_batches: int = 0) -> Dict:
     mon = StragglerMonitor(on_straggler=lambda s, dt, mu: print(
         f"[straggler] step {s}: {dt:.3f}s vs mean {mu:.3f}s", flush=True))
 
-    losses, times, launches = [], [], []
+    losses, times, launches, dropped = [], [], [], []
     t_start = time.perf_counter()
     try:
         for step in range(start_step, args.steps):
@@ -177,6 +193,7 @@ def main(argv: Optional[List[str]] = None, eval_batches: int = 0) -> Dict:
             times.append(mon.stop(step))
             losses.append(loss)
             launches.append({k: K.LAUNCHES[k] - before[k] for k in before})
+            dropped.append(metrics["moe_dropped"])
             if step % args.log_every == 0 or step == args.steps - 1:
                 print(f"step {step:5d} loss {loss:.4f} lr {metrics['lr']:.2e} "
                       f"gnorm {float(metrics['grad_norm']):.3f} {times[-1]:.3f}s",
@@ -202,6 +219,7 @@ def main(argv: Optional[List[str]] = None, eval_batches: int = 0) -> Dict:
     if any(any(v.values()) for v in launches):
         print(f"[launches per step] {launches[-1]}", flush=True)
     out = {"losses": losses, "step_s": times, "launches": launches,
+           "moe_dropped": [float(x) for x in dropped],
            "tokens_per_step": tokens, "n_params": n_params, "start_step": start_step,
            "stragglers": list(mon.flagged), "state": state}
     if eval_batches:

@@ -10,9 +10,9 @@ uniform contract:
 where ``aux`` always carries ``moe_reg`` and ``moe_dropped``
 (``core/dispatch.base_aux``), so the stack sums aux alike for every kind,
 plus ``usage`` (a selection-usage histogram: experts, PKM values or top-K
-channels) when ``collect_stats=True``. "dense", "glu", "topk", "pkm",
-"none" and "sigma_moe" run; the reference's other MoE kinds are registered
-names whose init and apply raise and name their ROADMAP item.
+channels) when ``collect_stats=True``. Every kind of the reference runs:
+the MoE kinds (sigma-MoE and the paper's Switch, S-BASE and noisy top-k
+baselines) share ``init_moe``/``apply_moe``.
 """
 from __future__ import annotations
 
@@ -46,23 +46,13 @@ def _apply_none(params: Dict, x: torch.Tensor, cfg: FFNConfig, *,
     return torch.zeros_like(x), base_aux(x.device)
 
 
-def _not_ported(item: str) -> FFNEntry:
-    def fail(*args, **kwargs):
-        cfg = args[2]
-        raise NotImplementedError(
-            f"ffn kind {cfg.kind!r} is not ported yet (ROADMAP queue 1 {item})")
-    return FFNEntry(fail, fail)
-
-
 FFN_REGISTRY: Dict[str, FFNEntry] = {
     "dense": FFNEntry(init_dense, apply_dense),
     "glu": FFNEntry(init_dense, apply_dense),
     "topk": FFNEntry(init_dense, apply_dense),
     "pkm": FFNEntry(init_pkm, apply_pkm),
     "none": FFNEntry(_init_none, _apply_none),
-    "sigma_moe": FFNEntry(init_moe, apply_moe),
-    **{kind: _not_ported("item 1, the other MoE kinds and selectors")
-       for kind in MOE_KINDS[1:]},
+    **{kind: FFNEntry(init_moe, apply_moe) for kind in MOE_KINDS},
 }
 
 

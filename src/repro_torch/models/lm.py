@@ -48,9 +48,12 @@ def _check_serving(cfg: ModelConfig) -> None:
 
 
 class LM:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, *, remat: str = "none"):
+        """``remat``: "none", "full" or "dots", the training forward's
+        recomputation of each block in the backward (``models/stack.py``)."""
         _check_supported(cfg)
         self.cfg = cfg
+        self.remat = remat
         self.dtype = _DTYPES[cfg.dtype]
         self.param_dtype = _DTYPES[cfg.param_dtype]
         # vocab padded to a multiple of 512, as in the reference; padded
@@ -110,7 +113,7 @@ class LM:
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux, _, new_mems = apply_stack(params["stack"], x, self.cfg,
                                           positions=positions, mems=mems,
-                                          gen=gen, train=train)
+                                          gen=gen, train=train, remat=self.remat)
         return apply_norm(params["final_norm"], x, self.cfg), aux, new_mems
 
     def loss(self, params, batch: Dict, *, gen: Optional[torch.Generator] = None,

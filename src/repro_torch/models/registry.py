@@ -9,13 +9,14 @@ from ..configs.base import FFNConfig, ModelConfig, moe_ffn
 from .lm import LM
 
 
-def build_model(cfg_or_name: Union[str, ModelConfig], *,
+def build_model(cfg_or_name: Union[str, ModelConfig], *, remat: str = "none",
                 ffn: Optional[str] = None, **overrides) -> LM:
     """The LM of an arch name or config, with ``overrides`` applied and, if
     ``ffn`` names another kind, its FFN swapped by the reference's widths
-    rule (parameter-matched: G * N_E = d_ff for sigma_moe). The reference's
-    remat, sequence-parallel, chunked-CE and expert-parallel options are
-    not ported."""
+    rule (parameter-matched: G * N_E = d_ff for sigma_moe, with the
+    reference's capacity dispatch). ``remat`` is the reference's ("none",
+    "full" or "dots"). Its sequence-parallel, chunked-CE and
+    expert-parallel options are not ported."""
     cfg = (get_config(cfg_or_name) if isinstance(cfg_or_name, str)
            else cfg_or_name)
     if overrides:
@@ -42,4 +43,4 @@ def build_model(cfg_or_name: Union[str, ModelConfig], *,
                                          activation=cfg.ffn.activation or "relu"))
         else:
             raise ValueError(f"cannot swap ffn to {ffn}")
-    return LM(cfg)
+    return LM(cfg, remat=remat)

@@ -8,13 +8,22 @@ segment structure but holds one parameter dict per layer,
 layers. Caches and XL memories mirror that structure. Only attention
 mixers with an FFN are ported; SSM mixers, shared blocks and
 cross-attention raise.
+
+``remat`` recomputes each block in the backward instead of keeping its
+activations, as the reference's ``jax.checkpoint`` around each scanned
+block does: "full" keeps only the block's inputs, "dots" also the outputs
+of the matrix products without batch dimensions (``aten.mm``/``addmm``,
+JAX's ``dots_with_no_batch_dims_saveable``). The recomputation replays
+the block's random draws from the explicit generator (``_remat_block``).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import BlockSpecEntry, ModelConfig
 from .attention import (apply_attention, init_attention,
@@ -89,6 +98,45 @@ def apply_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     return x, aux, new_cache, new_memory
 
 
+REMAT_MODES = ("none", "full", "dots")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_block(remat: str, gen: Optional[torch.Generator], fn,
+                 x: torch.Tensor, memory: Optional[torch.Tensor]):
+    """``fn(x, memory=memory)`` under ``torch.utils.checkpoint``
+    (non-reentrant). The checkpoint restores only the default generators
+    for the recomputation; ``gen``, from which the block draws dropout,
+    expert dropout and gating noise, is set back to its state at the
+    block's entry before the recomputation and to its state of just before
+    it after, so that the recomputed block draws what the forward drew and
+    later draws do not shift."""
+    entry = gen.get_state() if gen is not None else None
+    ran = [False]
+
+    def body(x, memory):
+        if not ran[0] or gen is None:
+            ran[0] = True
+            return fn(x, memory=memory)
+        before = gen.get_state()
+        gen.set_state(entry)
+        try:
+            return fn(x, memory=memory)
+        finally:
+            gen.set_state(before)
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_saveable)
+    return ckpt.checkpoint(body, x, memory, use_reentrant=False, **kw)
+
+
 def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, *,
                ep_degree: int = 0, device="cuda") -> Dict:
     return {"segments": [
@@ -127,9 +175,15 @@ def apply_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 cache: Optional[Dict] = None, cache_index=None,
                 block_table: Optional[torch.Tensor] = None,
                 seq_lens=None, mems: Optional[Dict] = None,
-                gen: Optional[torch.Generator] = None, train: bool = False
+                gen: Optional[torch.Generator] = None, train: bool = False,
+                remat: str = "none"
                 ) -> Tuple[torch.Tensor, Dict, Optional[Dict], Optional[Dict]]:
-    """Run every layer in order. Returns (x, aux, new_cache, new_mems)."""
+    """Run every layer in order. Returns (x, aux, new_cache, new_mems).
+    With ``remat`` "full" or "dots" and gradients on, each block is
+    recomputed in the backward (``_remat_block``)."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat={remat!r}, not one of {REMAT_MODES}")
+    recompute = remat != "none" and torch.is_grad_enabled()
     aux_tot: Dict[str, torch.Tensor] = {}
     new_cache = {"segments": []} if cache is not None else None
     new_mems = {"segments": []} if mems is not None else None
@@ -144,11 +198,15 @@ def apply_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 c = seg_cache[f"e{ei}"][r] if seg_cache is not None else None
                 m = (seg_mems[f"e{ei}"][r]
                      if seg_mems is not None and f"e{ei}" in seg_mems else None)
-                x, aux, nc, nm = apply_block(
-                    seg_params[f"e{ei}"][r], x, cfg, entry,
+                block = functools.partial(
+                    apply_block, seg_params[f"e{ei}"][r], cfg=cfg, entry=entry,
                     positions=positions, cache=c, cache_index=cache_index,
-                    block_table=block_table, seq_lens=seq_lens, memory=m,
-                    gen=gen, train=train)
+                    block_table=block_table, seq_lens=seq_lens, gen=gen,
+                    train=train)
+                if recompute:
+                    x, aux, nc, nm = _remat_block(remat, gen, block, x, m)
+                else:
+                    x, aux, nc, nm = block(x, memory=m)
                 for key, val in aux.items():
                     aux_tot[key] = aux_tot.get(key, 0.0) + val
                 new_seg[f"e{ei}"].append(nc)

@@ -724,3 +724,67 @@ def test_flash_attention_kernel_raises_under_grad(cuda):
     with pytest.raises(ValueError, match="head size"):
         K7.flash_attention(q[..., :48].contiguous().detach(), k[..., :48].contiguous(),
                            k[..., :48].contiguous(), causal=True, scale=0.125)
+
+
+def _baseline_layer(kind, dev, dispatch="sort"):
+    """One wt103-47m-moe FFN layer made the ``kind`` baseline
+    (chip_smoke.BASELINES), its parameters and 300 tokens, float32."""
+    import chip_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.core import moe
+    f = get_config("wt103-47m-moe").ffn
+    cfg = dataclasses.replace(f, **chip_smoke.BASELINES.get(kind, {}), dispatch=dispatch)
+    params = moe.init_moe(torch.Generator().manual_seed(4), 412, cfg, 16, device="cpu")
+    x = torch.randn((300, 412), generator=torch.Generator().manual_seed(5))
+    return cfg, {k: v.to(dev).requires_grad_() for k, v in params.items()}, \
+        x.to(dev).requires_grad_()
+
+
+def _layer_outputs(cfg, params, x, seed=6):
+    from repro_torch.core import moe
+    y, aux = moe.apply_moe(params, x, cfg, train=True,
+                           gen=torch.Generator(device=x.device).manual_seed(seed))
+    ((y * torch.linspace(-1, 1, y.shape[1], device=x.device)).sum()
+     + aux["moe_reg"]).backward()
+    return [y.detach(), x.grad] + [params[k].grad for k in sorted(params)]
+
+
+@pytest.mark.parametrize("kind", ["sbase", "noisy_topk"])
+def test_baseline_layers_run_the_kernels_and_match_plain(cuda, kind):
+    """S-BASE and noisy top-k layers on the card: forward K1 and K2,
+    backward K1, two K3 and K4, and float32 output and gradients within
+    1e-4 of the same layer on the kernels' plain versions (same generator,
+    so the same gating noise)."""
+    import chip_smoke
+    K.reset_launch_counts()
+    got = _layer_outputs(*_baseline_layer(kind, cuda))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {
+        "fused_w1": 2, "fused_w2": 1, "dw_streamed": 2, "cvmm": 1}
+    with chip_smoke.plain_kernels(K):
+        want = _layer_outputs(*_baseline_layer(kind, cuda))
+    assert len(got) == len(want) == 5 + (kind == "noisy_topk")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_capacity_dispatch_matches_the_sort_kernels(cuda, dtype, tol):
+    """The capacity dispatch at a capacity that drops nothing against the
+    sort path's kernels, on the card, same routing: output (and in float32
+    the gradients); it launches no kernel."""
+    cfg, params, x = _baseline_layer("sigma_moe", cuda)
+    x = x.detach().to(dtype).requires_grad_()
+    outs = []
+    for dispatch, factor in (("sort", 1.25), ("einsum", 16.0)):
+        c = dataclasses.replace(cfg, dispatch=dispatch, capacity_factor=factor)
+        for p in params.values():
+            p.grad = None
+        x.grad = None
+        K.reset_launch_counts()
+        outs.append(_layer_outputs(c, params, x))
+        torch.cuda.synchronize()
+        if dispatch == "einsum":
+            assert not any(K.LAUNCHES.values())
+    for g, w in zip(*outs) if dtype == torch.float32 else [(outs[1][0], outs[0][0])]:
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)

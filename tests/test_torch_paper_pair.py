@@ -101,9 +101,9 @@ def test_dense_ffn_matches_reference_with_gradients(kind, act):
 
 
 def test_ffn_registry_matches_reference():
-    """Every ported kind gives the reference registry's output and aux on
-    the same parameters; every other registered kind raises and names its
-    ROADMAP item."""
+    """Every kind gives the reference registry's output and aux on the same
+    parameters, the MoE baselines (Switch on the capacity dispatch, S-BASE,
+    noisy top-k with its router noise) included."""
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 5, D)).astype(np.float32)
     moe = _f32(reduced("wt103-262m-moe")).ffn
@@ -112,7 +112,15 @@ def test_ffn_registry_matches_reference():
             "none": FFNConfig(kind="none"), "sigma_moe": moe,
             "topk": FFNConfig(kind="topk", d_ff=128, topk_k=16, impl="einsum"),
             "pkm": FFNConfig(kind="pkm", n_subkeys=8, pkm_heads=2, pkm_knn=4,
-                             impl="einsum")}
+                             impl="einsum"),
+            "switch": dataclasses.replace(moe, kind="switch", k=1, dispatch="einsum",
+                                          selector_activation="softmax",
+                                          reg_kind="switch"),
+            "sbase": dataclasses.replace(moe, kind="sbase"),
+            "noisy_topk": dataclasses.replace(moe, kind="noisy_topk", reg_kind="cv",
+                                              selector_activation="softmax",
+                                              renormalize=True)}
+    assert set(cfgs) == set(ffn.FFN_REGISTRY) == set(jffn.FFN_REGISTRY)
     for kind, cfg in cfgs.items():
         jcfg = JaxFFNConfig(**dataclasses.asdict(cfg))
         jp = jffn.init_ffn(jax.random.PRNGKey(4), D, jcfg, 3)
@@ -127,14 +135,6 @@ def test_ffn_registry_matches_reference():
         shapes = lambda tree: map_leaves(tree, lambda path, p: tuple(p.shape))
         got = ffn.init_ffn(torch.Generator().manual_seed(0), D, cfg, 3, device="cpu")
         assert shapes(got) == shapes(jax.tree_util.tree_map(np.asarray, jp)), kind
-    assert set(ffn.FFN_REGISTRY) == set(jffn.FFN_REGISTRY)
-    for kind, item in {"switch": "item 1", "sbase": "item 1",
-                       "noisy_topk": "item 1"}.items():
-        cfg = dataclasses.replace(moe, kind=kind)
-        with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
-            ffn.init_ffn(torch.Generator(), D, cfg, 3, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
-            ffn.apply_ffn({}, _t(x), cfg)
 
 
 def test_eval_step_matches_reference():

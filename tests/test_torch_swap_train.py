@@ -3,8 +3,8 @@ port against the reference, on the CPU: three train steps of reduced
 wt103-47m-dense with ``--ffn pkm`` and ``--ffn topk`` (3 layers, d_model
 64; float32, dropout 0; XL memories) in step with the reference, as
 tests/test_torch_paper_pair.py runs the paper's pairs, and the port's CLI
-``--ffn`` with ``--device cpu --reduced`` (which refuses a swap to
-sigma_moe: its "einsum" dispatch is not ported). The port runs the value sum on
+``--ffn`` with ``--device cpu --reduced``, and the same three steps with
+``--ffn sigma_moe`` (the capacity dispatch). The port runs the value sum on
 its kernel rung ("pallas_fused": ``ops.gathered_weighted_sum_dedup`` on
 K6's plain version), the reference on its einsum rung: both compute the
 same sum. Tolerances: losses 1e-4, parameters after the steps 2e-4."""
@@ -86,9 +86,40 @@ def test_trainer_cli_swaps_the_ffn_on_the_cpu(kind, capsys):
 
 
 def test_trainer_cli_refuses_the_sigma_moe_swap():
-    """``--ffn sigma_moe`` on a dense arch gives the reference's "einsum"
-    dispatch, which the port does not run: the CLI stops before it builds
-    any state, naming the queue item."""
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 1"):
-        train_cli.main(["--arch", ARCH, "--ffn", "sigma_moe", "--reduced", "--steps",
-                        "1", "--batch", "2", "--seq", "16", "--device", "cpu"])
+    """``--ffn sigma_moe`` on a dense arch gives the reference's config with
+    the capacity ("einsum") dispatch, which the port now runs: three
+    reduced train steps in step with the reference's (losses, gradient
+    norms, parameters), and the CLI's reduced run of three steps, with no
+    kernel launch (the capacity path's products are library GEMMs)."""
+    jlm = jax_build_model(jax_reduced(ARCH), ffn="sigma_moe")
+    jlm = type(jlm)(_f32(jlm.cfg, "auto"))
+    lm = LM(_f32(build_model(reduced(ARCH), ffn="sigma_moe").cfg, "auto"))
+    assert lm.cfg.ffn.kind == "sigma_moe" and lm.cfg.ffn.dispatch == "einsum"
+    B, S = 2, 12
+    jopt = JaxOptimizerConfig(total_steps=3)
+    jstate = jax_init_train_state(jlm, jax.random.PRNGKey(0), jopt, use_mems=True, batch=B)
+    params = map_leaves(from_jax_params(jax.tree_util.tree_map(np.asarray, jstate["params"]),
+                                        lm.cfg, device="cpu"),
+                        lambda path, p: p.requires_grad_())
+    state = {"params": params, "opt": adamw_init(params),
+             "mems": lm.init_mems(B, device="cpu")}
+    jstep = jax.jit(jax_make_train_step(jlm, jopt))
+    step = make_train_step(lm, OptimizerConfig(total_steps=3))
+    it = JaxDataIterator(jax_make_dataset("synthetic", lm.cfg.vocab_size), B, S, seed=7)
+    for _ in range(3):
+        tokens = it.next()["tokens"]
+        jstate, jm = jstep(jstate, {"tokens": jnp.asarray(tokens)}, jax.random.PRNGKey(1))
+        state, m = step(state, {"tokens": torch.from_numpy(np.array(tokens))})
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-4)
+        np.testing.assert_allclose(float(m["moe_dropped"]), float(jm["moe_dropped"]),
+                                   atol=1e-6)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
+                                   rtol=1e-3)
+    want = from_jax_params(jax.tree_util.tree_map(np.asarray, jstate["params"]),
+                           lm.cfg, device="cpu")
+    for got, w in zip(tree_leaves(state["params"]), tree_leaves(want)):
+        np.testing.assert_allclose(got.detach().numpy(), w.numpy(), atol=2e-4, rtol=2e-4)
+    out = train_cli.main(["--arch", ARCH, "--ffn", "sigma_moe", "--reduced", "--steps",
+                          "3", "--batch", "2", "--seq", "16", "--device", "cpu"])
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    assert out["launches"] == [dict.fromkeys(K.LAUNCHES, 0)] * 3
