@@ -9,7 +9,9 @@ the unfused rung, 15-18 K7 and the long-prompt serving run, A-E the paper's
 dense/sigma-MoE pairs, their eval step and checkpoint/resume, F-H the
 paper's PKM and top-K MLP on K6, forward and backward, I-K the paper's MoE
 baselines (Switch, S-BASE, noisy top-k), the capacity dispatch and the
-trainer's gradient accumulation, compression and remat:
+trainer's gradient accumulation, compression and remat, L-N the reference's
+other architectures (Mamba2, zamba2's hybrid, whisper, pixtral and the
+llama-likes) served from the contiguous cache, with K7 at head size 112:
 
 1. the card: torch's device name and nvidia-smi's name and power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
@@ -91,7 +93,9 @@ trainer's gradient accumulation, compression and remat:
 17. end to end, K7 against its plain version: a depth-2 bf16 paged prefill
     of a 600-token prompt in three chunks (which must also reject a K7 with
     its softmax scale 10 % off), and a float32 full-depth prefill of a
-    1,024-token prompt in four, with the expert choices pinned;
+    1,024-token prompt in four, with the expert choices pinned, prompts from
+    a generator of the phase's own; the argmax may differ only where the
+    reference's logits tie within the tolerance (``argmax_agrees``);
 18. K7 timed at serve-long's last full prefill chunk and at serve's short
     chunk beside its bound (bytes, tensor products or exponentials), its
     plain version and ``scaled_dot_product_attention`` with K/V cut to
@@ -176,10 +180,40 @@ K. the trainer's options on wt103-47m-moe, 10 steps each: ``--grad-accum 2``
    half a quantization step) and ``bf16``, ``--remat full`` and ``dots`` (3
    K1, 2 K2, 2 K3, 1 K4 a layer; peak memory beside phase 9's, full below
    it): finite, falling loss and exact launches every step;
+L. K7 at zamba2-7b's head size 112 (its 4 x 600 prefill, a chunk at 512
+   over a longer cache, a chunk whose keys split over the card) and at
+   every shape phase N gives it (llama3 and pixtral 32/8 at 600 and 856
+   rows, deepseek 56/8, llama4-scout 40/8, gemma3's global 32/16 at 1,100,
+   minicpm 36/36, whisper's encoder over 1,500 frames, its decoder, and
+   its cross-attention at 600 rows and 1) against its plain version in
+   bf16 and float32 with phase 15's gates; the bf16 gate must reject K7
+   built with a planted fault in D 112's padding (``K7_FAULTS``); the D
+   112 prefill timed beside its bound and ``scaled_dot_product_attention``;
+M. zamba2-7b at full width and depth (81 slots), bf16: 4 prompts of 600
+   tokens through ``LM.prefill`` on the contiguous cache, then 32 greedy
+   ``LM.decode_step``s each: exactly 13 K7 launches a prefill (its shared
+   attention slots) and none at decode, finite logits, time to the first
+   token, decode tok/s and peak memory; at one pattern period (6 slots)
+   prefill logits with K7 against its plain version (bf16 3e-2, float32
+   1e-3, ``argmax_agrees``), and in float32 the decode steps' logits against one forward's
+   (1e-3);
+N. mamba2-370m as phase M at full depth (48 SSM layers, no kernel), and
+   llama3-8b, deepseek-coder-33b, minicpm-2b (2 layers), gemma3-27b (5
+   local and 1 global), llama4-scout (2 layers, sort dispatch, decode on
+   decode plans: K6 and K4), pixtral-12b (2 layers after a 256-token
+   image prefix) and whisper-tiny (4 + 4 layers over 1,500 frames) at full
+   width in float32: prefill and 8 decode steps against the forward
+   (1e-3), the prefill with the kernels against their plain versions
+   (1e-3), K7 launches as the config implies (one a layer without a
+   window; whisper's encoder and cross-attention too, and 4 a decode
+   step); llama4-scout's K4 and K6 against their plain versions at its
+   widths;
 19. one ``{"kernels": [...]}`` JSON line (with A's wt103-262m-moe rows of
     K1, K2, K3 and K4, their launches from C, K6's rows at F's shapes,
-    their launches from H, and the K1-K4 rows' launches in J's and K's
-    runs), then the device line last.
+    their launches from H, the K1-K4 rows' launches in J's and K's runs,
+    K7's row at D 112 from L and its launches in M and N, and K4's and
+    K6's launches at llama4-scout's decode in N), then the device line
+    last.
 
 With ``--out``, the full results (every phase's numbers and the ptxas
 reports) are also written there as JSON.
@@ -193,7 +227,8 @@ import math
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -271,9 +306,9 @@ LONG = dict(arch="granite-moe-3b-a800m", requests=16, prompt=3500, max_new=32,
 # (HotpotQA, 2WikiMQA, MuSiQue) as its harness runs a 4k-context model:
 # prompts cut to 3,500 tokens (config/model2maxlen.json), at most 32 new
 # tokens (config/dataset2maxlen.json). max_len is granite's 4,096 context.
-# Each task has 200 requests; 16 keep the script, with phases A-K, inside
+# Each task has 200 requests; 16 keep the script, with phases A-N, inside
 # half its time limit (64 took 250-463 s alone, host-bound; 32 took 160-189
-# s, which with phases I-K passed half the limit).
+# s, which with phases I-K passed half the limit; 16 took 86-118 s).
 SERVE_E, SERVE_D, SERVE_G = 40, 1536, 512      # granite-moe-3b-a800m's MoE widths
 K4_CASES = [(5120, SERVE_D, SERVE_G, "decode"), (5120, SERVE_G, SERVE_D, "decode"),
             (10240, SERVE_D, SERVE_G, "decode"), (5120, SERVE_D, SERVE_G, "random"),
@@ -302,6 +337,46 @@ E2E_TOL = {"bfloat16": 3e-2, "float32": 1e-3}
 # choices: bf16 at depth 2 as phase 5; float32 at full depth, 32 layers of
 # float32 sums in another order.
 
+D112_CASES = [("zamba2 prefill", 4, 600, 600, 32, 32, 112, True, 0, None),
+              ("zamba2 chunk at 512", 1, 256, 1024, 32, 32, 112, True, 512, (768,)),
+              ("zamba2 split keys", 1, 128, 4096, 32, 32, 112, True, 3968, (4096,)),
+              ("llama3-8b 32/8", 2, 600, 600, 32, 8, 128, True, 0, None),
+              ("deepseek 56/8", 2, 600, 600, 56, 8, 128, True, 0, None),
+              ("llama4-scout 40/8", 2, 600, 600, 40, 8, 128, True, 0, None),
+              ("gemma3 32/16 global", 2, 1100, 1100, 32, 16, 128, True, 0, None),
+              ("minicpm 36/36", 2, 600, 600, 36, 36, 64, True, 0, None),
+              ("pixtral 32/8 after 256 patches", 2, 856, 856, 32, 8, 128, True, 0, None),
+              ("whisper encoder", 2, 1500, 1500, 6, 6, 64, False, 0, None),
+              ("whisper decoder self", 2, 600, 600, 6, 6, 64, True, 0, None),
+              ("whisper cross", 2, 600, 1500, 6, 6, 64, False, 0, None),
+              ("whisper cross at decode", 2, 1, 1500, 6, 6, 64, False, 0, None)]
+# Phase L, (label, B, Sq, Sk, H, KV, D, causal, q_offset, kv_len): K7 at
+# zamba2-7b's head size 112 (its 4 x 600-token prefill, a 256-row chunk
+# over a longer cache, a chunk whose keys split over the card), then every
+# shape phase N's prefill and decode give K7: the groupings the other new
+# archs bring (4, 7, 5, 2 and 1 query heads a KV head) at NEW_RUN's 2 x 600
+# rows (gemma3's global layer over 1,100, pixtral's 256 patches and 600
+# tokens), and whisper's encoder, decoder and cross-attention over its
+# 1,500 encoder frames.
+K7_FAULTS = {1: "output rows staged at D's pitch",
+             2: "Q's pad columns 112-127 non-zero and read, against K pads of 1.0 in odd keys"}
+# Phase L: faults planted in the padding of D 112 at compile time
+# (csrc/flash_attention.cu's K7_FAULT), each a library of its own that
+# ``build.build(defines=)`` makes beside phase 2's build and
+# ``build.selected`` puts behind K7's wrapper.
+HYBRID = dict(arch="zamba2-7b", batch=4, prompt=600, max_new=32, depth=6, gate_new=8)
+# Phases M and N: zamba2-7b served at full width and depth (81 slots: 13 x
+# [5 SSM, shared attention + GLU], then 3 SSM) from the contiguous cache, 4
+# prompts of 600 tokens (not a multiple of the 256-token SSD chunk) and 32
+# greedy tokens each; the gates at one pattern period (6 slots), float32
+# decode against the forward over 8 tokens. mamba2-370m the same.
+NEW_ARCHS = {"mamba2-370m": None, "llama3-8b": 2, "deepseek-coder-33b": 2, "minicpm-2b": 2,
+             "gemma3-27b": 6, "llama4-scout-17b-a16e": 2, "pixtral-12b": 2,
+             "whisper-tiny": None}
+NEW_RUN = dict(batch=2, prompt=600, long_prompt=1100, decode=8)
+# Phase N: each arch at full width and one pattern period of depth (None:
+# its own depth; whisper 4 + 4 layers), float32, 2 prompts of 600 tokens
+# (gemma3's 1,100, past its 1,024-token window) and 8 greedy decode steps.
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -345,6 +420,40 @@ def close(got, want, tol: float, dn: str, ulps: bool = True):
     return ok, err, rel, lim
 
 
+def argmax_agrees(got, want, tol: float):
+    """Whether, on every row, ``got``'s argmax picks a logit that ``want``
+    puts within ``tol`` (atol = rtol, as ``close`` holds each logit) of its
+    own maximum: the same token, or a tie within the tolerance. Returns
+    (ok, the number of rows whose argmax differs, the largest gap
+    max(want) - want[argmax(got)] over the rows)."""
+    g, w = got.float(), want.float()
+    pick = g.argmax(-1, keepdim=True)
+    top = w.max(-1, keepdim=True).values
+    gap = (top - w.gather(-1, pick)).squeeze(-1)
+    flipped = int((pick.squeeze(-1) != w.argmax(-1)).sum())
+    ok = bool((gap <= tol * (1 + top.abs().squeeze(-1))).all())
+    return ok, flipped, gap.max().item()
+
+
+def _paged_prefill_logits(m, p, prompt, chunk, page_size, dev):
+    """Phase 17's prefill: ``prompt`` (a list of tokens) through
+    ``LM.prefill_paged`` in chunks of ``chunk`` on a fresh paged cache, the
+    MoE on decode plans. Returns each chunk's float32 logits (1, V)."""
+    import torch
+    n_pages = -(-len(prompt) // chunk) * chunk // page_size
+    cache = m.init_paged_cache(1 + n_pages, page_size, device=dev)
+    table = torch.arange(1, 1 + n_pages, dtype=torch.int32, device=dev)[None]
+    logits = []
+    with _decode_plans(chunk), torch.no_grad():
+        for start in range(0, len(prompt), chunk):
+            ln = min(chunk, len(prompt) - start)
+            tokens = torch.zeros((1, chunk), dtype=torch.int64, device=dev)
+            tokens[0, :ln] = torch.as_tensor(prompt[start:start + ln], device=dev)
+            lg, cache = m.prefill_paged(p, tokens, cache, table, start, ln)
+            logits.append(lg[:, :m.cfg.vocab_size].float())
+    return logits
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -379,8 +488,15 @@ def main() -> None:
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    infos = build.build()
-    print(f"[2] built {sorted(infos)} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(len(K7_FAULTS)) as pool:    # phase L's planted faults, beside
+        faulty = {fault: pool.submit(build.build, ["flash_attention"], _k7_fault(fault))
+                  for fault in K7_FAULTS}
+        infos = build.build()
+        for fault, job in faulty.items():
+            if job.exception() is not None:
+                fail(f"K7 with planted fault {fault} did not build:\n{job.exception()}")
+    print(f"[2] built {sorted(infos)} in {time.perf_counter() - t0:.1f} s (and K7 with each "
+          f"of phase L's {len(faulty)} planted faults)")
     for name, info in infos.items():
         print(f"[2] {name}: nvcc {info.seconds:.1f} s -> {info.path.name}")
         for line in info.ptxas.splitlines():
@@ -507,7 +623,9 @@ def main() -> None:
     train = _training_slice(args.seed, dev, gen, K, results)
 
     # -------------------------------------------- 15-18. K7 and serve-long
+    t0 = time.perf_counter()
     k7_row = _long_prompt_slice(args.seed, dev, gen, K, K7, results)
+    print(f"[15-18] took {time.perf_counter() - t0:.1f} s", flush=True)
     k7_row["launches_serve"] = launches["flash_attention"]
 
     # ------------------------------- A-E. the paper's dense/sigma-MoE pairs
@@ -518,6 +636,9 @@ def main() -> None:
 
     # ----------------- I-K. the MoE baselines and the trainer's options
     new_paths = _baselines_slice(args.seed, dev, gen, K, results, results["training"])
+
+    # ------- L-N. K7 at head size 112, zamba2-7b and the other new archs
+    d112, arch_launches = _arch_slice(args.seed, dev, gen, K, K7, results)
 
     # ------------------------------------------------------------ 19. report
     def row(kernel, shape, source, replaces):
@@ -554,6 +675,15 @@ def main() -> None:
                          (train["rows"]["dw_streamed"], "dw_streamed"), (k4, "cvmm")):
         row_["launches_baselines_and_options"] = {
             path: counts[kernel] for path, counts in new_paths.items()}
+    k7_row["head_size_112"] = {key: d112[key] for key in (
+        "shape", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+        "bound_by", "max_abs_err", "schedule", "library_backend")}
+    k7_row["launches_new_archs"] = {arch: {"prefill": c["flash_attention"],
+                                           "decode": c["decode"]["flash_attention"]}
+                                    for arch, c in arch_launches.items() if c}
+    llama4 = arch_launches["llama4-scout-17b-a16e"]
+    k4["launches_llama4_scout_decode"] = llama4["decode"]["cvmm"]
+    k6["launches_llama4_scout_decode"] = llama4["decode"]["gather_rows"]
     line = {"kernels": [
         train["rows"]["fused_w1"], train["rows"]["fused_w2"],
         train["rows"]["dw_streamed"], k4, train["rows"]["cvmm_dw"], k6, k7_row,
@@ -2057,7 +2187,6 @@ def _long_prompt_slice(seed, dev, gen, K, K7, results):
     kernels line."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.core import routing
     from repro_torch.models import LM
@@ -2171,8 +2300,9 @@ def _long_prompt_slice(seed, dev, gen, K, K7, results):
           f"{cfg.d_model}, {lm.dtype}; init {time.perf_counter() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(seed)
     lens = [LONG["prompt"]] * LONG["requests"]
-    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, size=n).tolist(),
-                    max_new=LONG["max_new"]) for i, n in enumerate(lens)]
+    reqs = [Request(rid=i, max_new=LONG["max_new"],
+                    prompt=rng.integers(1, cfg.vocab_size, size=LONG["prompt"]).tolist())
+            for i in range(LONG["requests"])]
     engine_kw = dict(max_batch=LONG["max_batch"], max_len=pool, page_size=ps,
                      burst_steps=LONG["burst_steps"], prefill_chunk=chunk, device=dev)
     with Engine(lm, params, **engine_kw) as eng:     # warm-up: lazy inits
@@ -2215,30 +2345,19 @@ def _long_prompt_slice(seed, dev, gen, K, K7, results):
     torch.cuda.empty_cache()
 
     # ----------------------- 17. end to end: prefill logits, K7 vs plain versions
-    def prefill(m, p, prompt):
-        n_pages = -(-len(prompt) // chunk) * chunk // ps
-        cache = m.init_paged_cache(1 + n_pages, ps, device=dev)
-        table = torch.arange(1, 1 + n_pages, dtype=torch.int32, device=dev)[None]
-        logits = []
-        with _decode_plans(chunk), torch.no_grad():
-            for start in range(0, len(prompt), chunk):
-                ln = min(chunk, len(prompt) - start)
-                tokens = torch.zeros((1, chunk), dtype=torch.int64, device=dev)
-                tokens[0, :ln] = torch.as_tensor(prompt[start:start + ln], device=dev)
-                lg, cache = m.prefill_paged(p, tokens, cache, table, start, ln)
-                logits.append(lg[:, :cfg.vocab_size].float())
-        return logits
+    rng = np.random.default_rng([seed, 17])    # its own prompts, whatever phase 16 drew
 
     def compare(tag, got, want, dn):
-        """Each chunk's logits through ``close`` with the same argmax; the
+        """Each chunk's logits through ``close`` and ``argmax_agrees``; the
         worst max_abs_err and normwise error, and whether every chunk passed."""
         worst, worst_rel, all_ok = 0.0, 0.0, True
         for i, (g, w) in enumerate(zip(got, want)):
             ok, err, rel, lim = close(g, w, E2E_TOL[dn], dn, ulps=False)
-            same = bool((g.argmax(-1) == w.argmax(-1)).all())
+            same, flipped, gap = argmax_agrees(g, w, E2E_TOL[dn])
             print(f"[17] {tag} chunk {i} (start {i * chunk}): logits max_abs_err {err:.3g}, "
                   f"normwise {rel:.3g} ({lim}; max|want| {w.abs().max().item():.3g}), "
-                  f"same argmax {same} {'ok' if ok and same else 'BAD'}")
+                  f"argmax: {flipped} rows differ, largest gap {gap:.3g} "
+                  f"{'ok' if ok and same else 'BAD'}")
             all_ok = all_ok and ok and same
             worst, worst_rel = max(worst, err), max(worst_rel, rel)
         return worst, worst_rel, all_ok
@@ -2248,10 +2367,10 @@ def _long_prompt_slice(seed, dev, gen, K, K7, results):
         choices = []
         K.reset_launch_counts()
         with pinned_routing(routing, choices, replay=False):
-            got = prefill(m, p, prompt)
+            got = _paged_prefill_logits(m, p, prompt, chunk, ps, dev)
         n_k7 = K.LAUNCHES["flash_attention"]
         with plain_kernels(K), pinned_routing(routing, choices, replay=True):
-            want = prefill(m, p, prompt)
+            want = _paged_prefill_logits(m, p, prompt, chunk, ps, dev)
         worst, worst_rel, ok = compare(f"{tag}, K7 vs plain", got, want, dn)
         if not ok:
             fail(f"{tag}: prefill with K7 disagrees with the plain versions")
@@ -2267,7 +2386,7 @@ def _long_prompt_slice(seed, dev, gen, K, K7, results):
             K7.flash_attention = faulty
             try:
                 with pinned_routing(routing, choices, replay=True):
-                    bad = prefill(m, p, prompt)
+                    bad = _paged_prefill_logits(m, p, prompt, chunk, ps, dev)
             finally:
                 K7.flash_attention = k7
             b_err, b_rel, b_ok = compare(f"{tag}, faulty K7 (scale x 1.1) vs plain",
@@ -2293,59 +2412,8 @@ def _long_prompt_slice(seed, dev, gen, K, K7, results):
     torch.cuda.empty_cache()
 
     # ------------------- 18. K7 at serve-long's last full chunk and serve's short one
-    from torch.backends.cuda import (SDPAParams, can_use_efficient_attention,
-                                     can_use_flash_attention)
-    from torch.nn.attention.bias import causal_lower_right
-
     def time_k7(sq, sk, off, kvl):
-        """K7 on one causal chunk of ``sq`` rows at ``off`` over kv_len ``kvl``
-        of an ``sk``-key pool beside its plain version, the library call on
-        K/V cut to kv_len with a lower-right causal mask (the mask is then
-        exactly K7's), and the bound."""
-        q, k, v = qkv(1, sq, sk, H, KV, Dh, torch.bfloat16)
-        kw = k7_args(True, Dh, off, (kvl,))
-        qt, kt, vt = q.transpose(1, 2), k[:, :kvl].transpose(1, 2), v[:, :kvl].transpose(1, 2)
-        gqa = can_use_flash_attention(SDPAParams(qt, kt, vt, None, 0.0, False, True))
-        if not gqa:               # expand the KV heads here, outside the timing
-            kt, vt = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
-        sdpa_params = SDPAParams(qt, kt, vt, None, 0.0, False, gqa)
-        backend = ("flash" if can_use_flash_attention(sdpa_params) else "efficient"
-                   if can_use_efficient_attention(sdpa_params) else "math")
-        bias = causal_lower_right(sq, kvl)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias,
-                                                  scale=Dh ** -0.5, enable_gqa=gqa)
-
-        got = K7.flash_attention(q, k, v, **kw).float()
-        err = (got - K7.flash_attention_plain(q, k, v, **kw).float()).abs().max().item()
-        lib_err = (sdpa().transpose(1, 2).float() - got).abs().max().item()
-        if lib_err > K7_TOL["bfloat16"]:
-            fail("scaled_dot_product_attention does not compute K7's function here")
-        pairs = sum(min(kvl, off + i + 1) for i in range(sq))      # visible (row, key) pairs
-        flops, exps = 4 * Dh * H * pairs, H * pairs                 # Q K^T and P V; exp2
-        nbytes = (2 * q.numel() + 2 * kvl * KV * Dh) * q.element_size() + 8
-        bounds = {"bytes": nbytes / HBM_BYTES_PER_S, "products": flops / PEAK_FLOPS["bfloat16"],
-                  "exponentials": exps / EXP_PER_S}
-        worst = max(bounds, key=bounds.get)
-        _, items, splits, grid = K7.flash_schedule(1, sq, H, KV, sk, off, True,
-                                                   K._sm_count(dev), K7.FLASH_BK[Dh])
-        return {"shape": (f"B 1 Sq {sq} at q_offset {off}, kv_len {kvl} of {sk} keys, heads "
-                          f"{H}/{KV}, D {Dh}"),
-                "ms": _time_ms(lambda: K7.flash_attention(q, k, v, **kw)),
-                "plain_ms": _time_ms(lambda: K7.flash_attention_plain(q, k, v, **kw)),
-                "library_ms": _time_ms(sdpa),
-                "device_ms": _device_ms(lambda: K7.flash_attention(q, k, v, **kw)),
-                "library_device_ms": _device_ms(sdpa),
-                "bound_ms": 1e3 * bounds[worst],
-                "bound_by": "bytes" if worst == "bytes" else "operations",
-                "bound_operations": None if worst == "bytes" else worst,
-                "bounds_ms": {n: 1e3 * x for n, x in bounds.items()},
-                "max_abs_err": err, "library_vs_kernel_err": lib_err, "bytes": nbytes,
-                "flops": flops, "exps": exps, "library_backend": backend,
-                "library_enable_gqa": gqa,
-                "schedule": {"bk": K7.FLASH_BK[Dh], "items": items, "splits": splits,
-                             "grid": grid}}
+        return _time_k7(K, K7, *qkv(1, sq, sk, H, KV, Dh, torch.bfloat16), off, kvl)
 
     timed = {"serve-long": time_k7(chunk, pool, last, last + chunk),
              "serve": time_k7(32, 128, 64, 96)}      # serve's Engine: chunks of 32, max_len 128
@@ -2394,6 +2462,461 @@ def _long_prompt_slice(seed, dev, gen, K, K7, results):
                "bound_ms", "bound_by", "max_abs_err", "schedule")}}
     results["k7_timing"] = timed
     return row
+
+
+def _k7_fault(fault):
+    """The defines that build K7 with planted fault ``fault`` of K7_FAULTS."""
+    return (f"K7_FAULT={fault}",)
+
+
+def _arch_slice(seed, dev, gen, K, K7, results):
+    """Phases L-N: K7 at head size 112 and the new groupings, zamba2-7b
+    served at full width and depth, the other new archs at full width.
+    Returns (K7's D 112 row, the launches of each phase's main path)."""
+    t0 = time.perf_counter()
+    row = _phase_l(dev, gen, K, K7, results)
+    print(f"[L] took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches = {HYBRID["arch"]: _phase_m(seed, dev, K, K7, results)}
+    print(f"[M] took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(_phase_n(seed, dev, gen, K, K7, results))
+    print(f"[N] took {time.perf_counter() - t0:.1f} s", flush=True)
+    return row, launches
+
+
+def _phase_l(dev, gen, K, K7, results):
+    """Phase L: K7 at D 112 and at the new archs' groupings against its
+    plain version (phase 15's gates), the planted padding faults rejected,
+    and the D 112 prefill timed beside its bound and SDPA."""
+    import torch
+    from repro_torch.kernels import build
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[1]
+        for label, b, sq, sk, h, kv, d, causal, off, kl in D112_CASES:
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+            kw = dict(causal=causal, scale=d ** -0.5, q_offset=off,
+                      kv_len=None if kl is None else torch.tensor(kl, device=dev))
+            got, want = K7.flash_attention(q, k, v, **kw), K7.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            ok, err, rel, lim = close(got, want, K7_TOL[dn], dn)
+            same = same_bits(got, K7.flash_attention(q, k, v, **kw))
+            _, _, splits, _ = K7.flash_schedule(b, sq, h, kv, sk, off, causal, K._sm_count(dev),
+                                                K7.FLASH_BK[d])
+            print(f"[L] flash_attention {label}: B {b} Sq {sq} Sk {sk} heads {h}/{kv} D {d} "
+                  f"causal {causal} q_offset {off} kv_len {kl} {dn} ({splits} splits): "
+                  f"max_abs_err {err:.3g}, normwise {rel:.3g} ({lim}), same bits twice {same} "
+                  f"{'ok' if ok and same else 'BAD'}")
+            if not ok or not same:
+                fail(f"flash_attention disagrees with its plain version or itself ({label}, {dn})")
+            if label == "zamba2 split keys" and splits < 2:
+                fail(f"{label}: {splits} split, no keys split over the card")
+            errs[f"{label} {dn}"] = {"max_abs_err": err, "normwise": rel, "limit": lim,
+                                     "same_bits_twice": same, "splits": splits}
+            if dn == "bfloat16" and label.startswith("zamba2"):
+                for fault, what in K7_FAULTS.items():
+                    with build.selected("flash_attention", _k7_fault(fault)):
+                        bad = K7.flash_attention(q, k, v, **kw)
+                    b_ok, b_err, b_rel, _ = close(bad, want, K7_TOL[dn], dn)
+                    print(f"[L] faulty K7 ({what}) at {label}: max_abs_err {b_err:.3g}, "
+                          f"normwise {b_rel:.3g}: "
+                          f"{'PASSED, the gate is too loose' if b_ok else 'rejected'}")
+                    if b_ok:
+                        fail(f"the bf16 gate let a faulty K7 ({what}) through at {label}")
+                    errs[f"{label} faulty {fault}"] = {"max_abs_err": b_err, "normwise": b_rel,
+                                                       "rejected": not b_ok}
+    results["phaseL"] = errs
+    b, sq, _, h, kv, d = D112_CASES[0][1:7]
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for shape in ((b, sq, h, d), (b, sq, kv, d), (b, sq, kv, d)))
+    t = _time_k7(K, K7, q, k, v, 0, sq)
+    print(f"[L] flash_attention at zamba2's prefill, {t['shape']} bfloat16: kernel "
+          f"{t['ms']:.4f} ms ({t['device_ms']:.4f} device alone), plain {t['plain_ms']:.4f} ms, "
+          f"scaled_dot_product_attention {t['library_ms']:.4f} ms "
+          f"({t['library_device_ms']:.4f} device alone; {t['library_backend']} backend, vs K7 "
+          f"max_abs_err {t['library_vs_kernel_err']:.3g}); bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_operations'] or 'bytes'}; bytes {t['bounds_ms']['bytes']:.4f}, products "
+          f"{t['bounds_ms']['products']:.4f}, exponentials {t['bounds_ms']['exponentials']:.4f}); "
+          f"schedule {t['schedule']}")
+    lines = results["build"]["flash_attention"]["ptxas"].splitlines()
+    report = [x.split("ptxas info    : ")[-1].strip()
+              for i, ln in enumerate(lines)
+              if "Compiling entry" in ln and "flash_fwd_bf16ILi112ELi64E" in ln
+              for x in lines[i + 1:i + 4] if "Function properties" not in x]
+    print(f"[L] ptxas flash_fwd_bf16<112, 64>: {'; '.join(report)}")
+    t["ptxas"] = report
+    results["k7_d112_timing"] = t
+    return t
+
+
+def _k7_per_prefill(cfg) -> int:
+    """K7 launches one prefill implies: every attention layer without a
+    window (shared slots included), and for an encoder-decoder model each
+    encoder layer and each decoder layer's cross-attention."""
+    n = sum(1 for e in cfg.layer_pattern() if e.mixer in ("attn", "shared_attn")
+            and not ((e.attn_kind or cfg.attention.kind) == "local" and cfg.attention.window))
+    if cfg.is_encoder_decoder:
+        n += cfg.n_encoder_layers + cfg.n_layers
+    return n
+
+
+def _serve_contiguous(lm, params, prompts, max_new, dev, K, patches=None, frames=None,
+                      plans=False):
+    """The main path of phases M and N: ``LM.prefill`` of the prompts on the
+    contiguous cache, then ``max_new`` greedy ``LM.decode_step``s (the MoE on
+    decode plans with ``plans``), every count at 0 just before and read
+    after the prefill and after the decode. Returns the time to the first
+    token, the decode rate, the peak memory, the launches and the logits."""
+    import torch
+    b, n = prompts.shape
+    p = 0 if patches is None else patches.shape[1]
+    vocab = lm.cfg.vocab_size
+
+    def run():
+        cache = lm.init_cache(b, p + n + max_new, device=dev)
+        t0 = time.perf_counter()
+        lg, cache = lm.prefill(params, prompts, cache, patches=patches, frames=frames)
+        tok = lg[:, :vocab].argmax(-1)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        after_prefill = dict(K.LAUNCHES)
+        logits, toks = [lg], [tok]
+        t0 = time.perf_counter()
+        with _decode_plans(b) if plans else nullcontext():
+            for i in range(max_new):
+                lg, cache = lm.decode_step(params, cache, tok, p + n + i)
+                tok = lg[:, :vocab].argmax(-1)
+                logits.append(lg)
+                toks.append(tok)
+        torch.cuda.synchronize()
+        return ttft, time.perf_counter() - t0, after_prefill, logits, toks
+
+    with torch.no_grad():
+        run()                                    # warm-up: lazy inits
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        ttft, decode_s, after_prefill, logits, toks = run()
+    after = dict(K.LAUNCHES)
+    return {"ttft_s": ttft, "decode_s": decode_s, "decode_tok_per_s": b * max_new / decode_s,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches_prefill": after_prefill,
+            "launches_decode": {k: after[k] - after_prefill[k] for k in after},
+            "logits": torch.stack(logits, 1), "tokens": torch.stack(toks, 1)}
+
+
+def _decode_vs_forward(tag, lm, params, prompts, dev, K, new, patches=None, frames=None,
+                       plans=False):
+    """The float32 gate of phases M and N: the prefill's and ``new`` decode
+    steps' logits against one full forward's at the same positions, within
+    E2E_TOL["float32"]. Returns the max_abs_err and the serve's launches."""
+    import torch
+    run = _serve_contiguous(lm, params, prompts, new, dev, K, patches, frames, plans)
+    p = 0 if patches is None else patches.shape[1]
+    n = prompts.shape[1]
+    with torch.no_grad():
+        tokens = torch.cat([prompts, run["tokens"][:, :-1]], 1)
+        h, _, _ = lm.forward(params, tokens, prefix_embeds=patches, frames=frames)
+        want = lm._unembed(params, h[:, p + n - 1:])
+    vocab = lm.cfg.vocab_size
+    ok, err, rel, lim = close(run["logits"][..., :vocab], want[..., :vocab],
+                              E2E_TOL["float32"], "float32")
+    print(f"[{tag}] float32: prefill and {new} decode steps' logits vs one forward's at "
+          f"positions {p + n - 1}-{p + n + new - 1}: max_abs_err {err:.3g}, normwise "
+          f"{rel:.3g} ({lim}) {'ok' if ok else 'BAD'}")
+    if not ok:
+        fail(f"{tag}: decode logits disagree with the forward's")
+    return err, run
+
+
+def _prefill_vs_plain(tag, label, lm, params, prompts, dev, K, dn, patches=None,
+                      frames=None):
+    """The prefill's logits with the kernels against their plain versions
+    on the same inputs and expert choices, within E2E_TOL[dn] and
+    ``argmax_agrees`` (phases M and N). Returns the max_abs_err."""
+    import torch
+    from repro_torch.core import routing
+    b, n = prompts.shape
+    n += 0 if patches is None else patches.shape[1]
+    choices, logits = [], []
+    for plain in (False, True):
+        with (plain_kernels(K) if plain else nullcontext()), torch.no_grad(), \
+                pinned_routing(routing, choices, replay=plain):
+            lg, _ = lm.prefill(params, prompts, lm.init_cache(b, n, device=dev),
+                               patches=patches, frames=frames)
+        logits.append(lg[:, :lm.cfg.vocab_size])
+    got, want = logits
+    ok, err, rel, lim = close(got, want, E2E_TOL[dn], dn, ulps=False)
+    same, flipped, gap = argmax_agrees(got, want, E2E_TOL[dn])
+    print(f"[{tag}] {label} {dn}: prefill logits with the kernels vs their plain versions: "
+          f"max_abs_err {err:.3g}, normwise {rel:.3g} ({lim}); argmax: {flipped} rows differ, "
+          f"largest gap {gap:.3g} {'ok' if ok and same else 'BAD'}")
+    if not ok or not same:
+        fail(f"{lm.cfg.name} {dn}: prefill with the kernels disagrees with the plain versions")
+    return err
+
+
+def _phase_m(seed, dev, K, K7, results):
+    """Phase M: zamba2-7b at full width and depth, bf16, from the contiguous
+    cache; then its gates at one pattern period. Returns the serve's
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = get_config(HYBRID["arch"])
+    b, n, new = HYBRID["batch"], HYBRID["prompt"], HYBRID["max_new"]
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(b, n)), device=dev)
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    params = lm.serving_params(lm.init(torch.Generator(device=dev).manual_seed(seed),
+                                       device=dev))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[M] {cfg.name}: {cfg.n_layers} slots, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+          f"params in {lm.dtype}; init {time.perf_counter() - t0:.1f} s", flush=True)
+    run = _serve_contiguous(lm, params, prompts, new, dev, K)
+    del params
+    torch.cuda.empty_cache()
+    want = _k7_per_prefill(cfg)
+    k7_pre = run["launches_prefill"]["flash_attention"]
+    k7_dec = run["launches_decode"]["flash_attention"]
+    finite = bool(torch.isfinite(run["logits"][..., :cfg.vocab_size]).all())
+    print(f"[M] {b} prompts of {n} tokens, {new} greedy tokens each: time to first token "
+          f"{run['ttft_s'] * 1e3:.1f} ms, decode {run['decode_tok_per_s']:.1f} tok/s "
+          f"({run['decode_s'] * 1e3 / new:.1f} ms a step of {b}); max_memory_allocated "
+          f"{run['max_memory_allocated'] / 2**30:.2f} GiB; K7 launches: prefill {k7_pre} "
+          f"(expected {want}), decode {k7_dec} (expected 0); finite logits {finite}")
+    if k7_pre != want or k7_dec != 0 or not finite:
+        fail(f"zamba2-7b's serve: K7 {k7_pre} at prefill, {k7_dec} at decode; finite {finite}")
+    out = {k: v for k, v in run.items() if k not in ("logits", "tokens")}
+    out["n_params"] = n_params
+    # Gates at one pattern period (5 SSM slots and the shared block)
+    dcfg = cfg.override(n_layers=HYBRID["depth"])
+    for dn in ("bfloat16", "float32"):
+        lm6 = LM(dcfg.override(dtype=dn))
+        p6 = lm6.serving_params(lm6.init(torch.Generator(device=dev).manual_seed(seed + 1),
+                                         device=dev))
+        out[f"depth{HYBRID['depth']}_{dn}_k7_vs_plain"] = _prefill_vs_plain(
+            "M", f"depth {HYBRID['depth']}", lm6, p6, prompts, dev, K, dn)
+        if dn == "float32":
+            err, _ = _decode_vs_forward("M", lm6, p6, prompts, dev, K, HYBRID["gate_new"])
+            out["decode_vs_forward_float32"] = err
+        del p6
+        torch.cuda.empty_cache()
+    results["phaseM"] = out
+    return run["launches_prefill"] | {"decode": run["launches_decode"]}
+
+
+def _phase_n(seed, dev, gen, K, K7, results):
+    """Phase N: mamba2-370m served at full width and depth as phase M, the
+    other new archs at full width and one pattern period in float32:
+    prefill and decode on the contiguous cache against the forward, K7
+    launches against the count the config implies; llama4-scout's K4 and K6
+    against their plain versions at its widths. Returns the launches of
+    each arch's serve."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+
+    out, launches = {}, {}
+    rng = np.random.default_rng(seed + 3)
+    for arch, depth in NEW_ARCHS.items():
+        cfg = get_config(arch)
+        if cfg.ffn.kind == "sigma_moe":
+            cfg = cfg.with_ffn(dataclasses.replace(cfg.ffn, dispatch="sort"))
+        if arch == "mamba2-370m":
+            b, n, new = HYBRID["batch"], HYBRID["prompt"], HYBRID["max_new"]
+            prompts = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(b, n)), device=dev)
+            lm = LM(cfg)
+            params = lm.serving_params(lm.init(torch.Generator(device=dev).manual_seed(seed),
+                                               device=dev))
+            run = _serve_contiguous(lm, params, prompts, new, dev, K)
+            del params
+            finite = bool(torch.isfinite(run["logits"][..., :cfg.vocab_size]).all())
+            used = {k: v for k, v in run["launches_prefill"].items() if v} | {
+                k: v for k, v in run["launches_decode"].items() if v}
+            print(f"[N] {arch} bf16 at full depth ({cfg.n_layers} SSM layers): {b} prompts of "
+                  f"{n}, {new} tokens each: time to first token {run['ttft_s'] * 1e3:.1f} ms, "
+                  f"decode {run['decode_tok_per_s']:.1f} tok/s; max_memory_allocated "
+                  f"{run['max_memory_allocated'] / 2**30:.2f} GiB; kernel launches {used} "
+                  f"(none expected); finite {finite}")
+            if used or not finite:
+                fail(f"{arch}: launches {used}, finite {finite}")
+            entry = {k: v for k, v in run.items() if k not in ("logits", "tokens")}
+            lm = LM(cfg.override(n_layers=HYBRID["depth"], dtype="float32"))
+            params = lm.init(torch.Generator(device=dev).manual_seed(seed + 1), device=dev)
+            entry["decode_vs_forward_float32"], _ = _decode_vs_forward(
+                "N", lm, params, prompts, dev, K, HYBRID["gate_new"])
+            out[arch] = entry
+            launches[arch] = {}
+            del params
+            torch.cuda.empty_cache()
+            continue
+        cfg = cfg.override(dtype="float32", **({"n_layers": depth} if depth else {}))
+        b = NEW_RUN["batch"]
+        n = NEW_RUN["long_prompt" if cfg.attention.window and cfg.pattern else "prompt"]
+        prompts = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(b, n)), device=dev)
+        patches = frames = None
+        if cfg.n_vision_tokens:
+            patches = torch.randn((b, cfg.n_vision_tokens, cfg.d_model), generator=gen,
+                                  device=dev)
+        if cfg.is_encoder_decoder:
+            frames = torch.randn((b, cfg.n_audio_frames, cfg.d_model), generator=gen,
+                                 device=dev)
+        lm = LM(cfg)
+        t0 = time.perf_counter()
+        params = lm.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        moe = cfg.ffn.kind == "sigma_moe"
+        enc = f" + {cfg.n_encoder_layers} encoder" if cfg.is_encoder_decoder else ""
+        print(f"[N] {arch}: {cfg.n_layers} layers{enc}, "
+              f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B params in float32; init "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        err, run = _decode_vs_forward("N", lm, params, prompts, dev, K, NEW_RUN["decode"],
+                                      patches, frames, plans=moe)
+        vs_plain = _prefill_vs_plain("N", arch, lm, params, prompts, dev, K, "float32",
+                                     patches, frames)
+        want = _k7_per_prefill(cfg)
+        want_dec = NEW_RUN["decode"] * cfg.n_layers if cfg.is_encoder_decoder else 0
+        pre, dec = run["launches_prefill"], run["launches_decode"]
+        print(f"[N] {arch}: prefill of {b} x {n} tokens"
+              f"{' after ' + str(cfg.n_vision_tokens) + ' patches' if patches is not None else ''}"
+              f"{' over ' + str(cfg.n_audio_frames) + ' frames' if frames is not None else ''}: "
+              f"K7 launches {pre['flash_attention']} (expected {want}), in {NEW_RUN['decode']} "
+              f"decode steps {dec['flash_attention']} (expected {want_dec}); launches prefill "
+              f"{ {k: v for k, v in pre.items() if v} }, "
+              f"decode { {k: v for k, v in dec.items() if v} }")
+        if pre["flash_attention"] != want or dec["flash_attention"] != want_dec:
+            fail(f"{arch}: K7 launches {pre['flash_attention']} at prefill, "
+                 f"{dec['flash_attention']} at decode")
+        if moe:
+            steps = NEW_RUN["decode"] * cfg.n_layers
+            exp = {"gather_rows": steps, "cvmm": 3 * steps}
+            if pre["fused_w1"] < cfg.n_layers or pre["fused_w2"] < cfg.n_layers or any(
+                    dec[k] != v for k, v in exp.items()):
+                fail(f"{arch}: MoE launches prefill {pre}, decode {dec}; expected at least "
+                     f"{cfg.n_layers} K1 and K2 at prefill and {exp} at decode")
+        out[arch] = {"decode_vs_forward_float32": err, "n_params": n_params,
+                     "prefill_vs_plain_float32": vs_plain,
+                     "launches_prefill": pre, "launches_decode": dec,
+                     "ttft_s": run["ttft_s"], "decode_tok_per_s": run["decode_tok_per_s"]}
+        launches[arch] = pre | {"decode": dec}
+        del params, run
+        torch.cuda.empty_cache()
+        if moe:
+            out[arch]["kernels_vs_plain"] = _llama4_kernels(dev, gen, K, ops, cfg)
+    results["phaseN"] = out
+    return launches
+
+
+def _llama4_kernels(dev, gen, K, ops, cfg):
+    """Phase N: K4 and K6 at llama4-scout's decode-plan widths (d 5,120, G
+    8,192, 16 experts, top-1 of 2 tokens: M_pad 2,048) against their plain
+    versions, phase 3's gates."""
+    import torch
+    from repro_torch.common import round_up
+    f = cfg.ffn
+    E, d, G = f.n_experts, cfg.d_model, f.expert_size
+    plan = ops.make_decode_plan(NEW_RUN["batch"], f.k, E, device=dev)
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[1]
+        for k, n in ((d, G), (G, d)):          # multiples of 128, as the kernel takes them
+            k, n = round_up(k, 128), round_up(n, 128)
+            x = torch.randn((plan.m_pad, k), generator=gen, device=dev).to(dt)
+            w = (torch.randn((E, k, n), generator=gen, device=dev) * k ** -0.5).to(dt)
+            got, again = K.cvmm(x, plan.tile_expert, w), K.cvmm(x, plan.tile_expert, w)
+            ok, err, rel, lim = close(got, K.cvmm_plain(x, plan.tile_expert, w), TOL[dn], dn,
+                                      ulps=False)
+            twice = same_bits(got, again)
+            print(f"[N] cvmm llama4-scout decode plan M_pad {plan.m_pad} {k}->{n} E {E} {dn}: "
+                  f"max_abs_err {err:.3g}, normwise {rel:.3g} ({lim}), same bits twice {twice} "
+                  f"{'ok' if ok and twice else 'BAD'}")
+            if not ok or not twice:
+                fail(f"cvmm disagrees with cvmm_plain or itself at llama4-scout's {k}->{n} {dn}")
+            errs[f"cvmm {k}->{n} {dn}"] = err
+            del w
+        x = torch.randn((NEW_RUN["batch"], d), generator=gen, device=dev).to(dt)
+        for weighted in (False, True):
+            wt = (torch.rand((plan.gather.u_pad,), generator=gen, device=dev)
+                  if weighted else None)
+            err = (K.gather_rows(x, plan.gather.row_src, wt).float()
+                   - K.gather_rows_plain(x, plan.gather.row_src, wt).float()).abs().max().item()
+            print(f"[N] gather_rows llama4-scout n {NEW_RUN['batch']} d {d} into "
+                  f"{plan.gather.row_src.numel()} rows weighted {weighted} {dn}: max_abs_err "
+                  f"{err:.3g} (exact) {'ok' if err == 0 else 'BAD'}")
+            if err != 0:
+                fail(f"gather_rows disagrees with its plain version at llama4-scout's d {dn}")
+            errs[f"gather_rows weighted {weighted} {dn}"] = err
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _time_k7(K, K7, q, k, v, off, kvl):
+    """K7 on one causal bf16 call of q (B, Sq, H, D) at ``off`` over kv_len
+    ``kvl`` (every batch row) of an Sk-key pool beside its plain version,
+    the library call on K/V cut to kv_len with a lower-right causal mask
+    (the mask is then exactly K7's), and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from torch.backends.cuda import (SDPAParams, can_use_efficient_attention,
+                                     can_use_flash_attention)
+    from torch.nn.attention.bias import causal_lower_right
+
+    b, sq, H, Dh = q.shape
+    sk, KV = k.shape[1], k.shape[2]
+    kw = dict(causal=True, scale=Dh ** -0.5, q_offset=off,
+              kv_len=torch.full((b,), kvl, device=q.device))
+    qt, kt, vt = q.transpose(1, 2), k[:, :kvl].transpose(1, 2), v[:, :kvl].transpose(1, 2)
+    gqa = can_use_flash_attention(SDPAParams(qt, kt, vt, None, 0.0, False, True))
+    if not gqa:               # expand the KV heads here, outside the timing
+        kt, vt = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
+    sdpa_params = SDPAParams(qt, kt, vt, None, 0.0, False, gqa)
+    backend = ("flash" if can_use_flash_attention(sdpa_params) else "efficient"
+               if can_use_efficient_attention(sdpa_params) else "math")
+    bias = causal_lower_right(sq, kvl)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias,
+                                              scale=Dh ** -0.5, enable_gqa=gqa)
+
+    got = K7.flash_attention(q, k, v, **kw).float()
+    err = (got - K7.flash_attention_plain(q, k, v, **kw).float()).abs().max().item()
+    lib_err = (sdpa().transpose(1, 2).float() - got).abs().max().item()
+    if lib_err > K7_TOL["bfloat16"]:
+        fail("scaled_dot_product_attention does not compute K7's function here")
+    pairs = b * sum(min(kvl, off + i + 1) for i in range(sq))  # visible (row, key) pairs
+    flops, exps = 4 * Dh * H * pairs, H * pairs                 # Q K^T and P V; exp2
+    nbytes = (2 * q.numel() + 2 * b * kvl * KV * Dh) * q.element_size() + 8 * b
+    bounds = {"bytes": nbytes / HBM_BYTES_PER_S, "products": flops / PEAK_FLOPS["bfloat16"],
+              "exponentials": exps / EXP_PER_S}
+    worst = max(bounds, key=bounds.get)
+    _, items, splits, grid = K7.flash_schedule(b, sq, H, KV, sk, off, True,
+                                               K._sm_count(q.device), K7.FLASH_BK[Dh])
+    return {"shape": (f"B {b} Sq {sq} at q_offset {off}, kv_len {kvl} of {sk} keys, heads "
+                      f"{H}/{KV}, D {Dh}"),
+            "ms": _time_ms(lambda: K7.flash_attention(q, k, v, **kw)),
+            "plain_ms": _time_ms(lambda: K7.flash_attention_plain(q, k, v, **kw)),
+            "library_ms": _time_ms(sdpa),
+            "device_ms": _device_ms(lambda: K7.flash_attention(q, k, v, **kw)),
+            "library_device_ms": _device_ms(sdpa),
+            "bound_ms": 1e3 * bounds[worst],
+            "bound_by": "bytes" if worst == "bytes" else "operations",
+            "bound_operations": None if worst == "bytes" else worst,
+            "bounds_ms": {n: 1e3 * x for n, x in bounds.items()},
+            "max_abs_err": err, "library_vs_kernel_err": lib_err, "bytes": nbytes,
+            "flops": flops, "exps": exps, "library_backend": backend,
+            "library_enable_gqa": gqa,
+            "schedule": {"bk": K7.FLASH_BK[Dh], "items": items, "splits": splits,
+                         "grid": grid}}
 
 
 @contextmanager

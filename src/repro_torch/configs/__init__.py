@@ -1,6 +1,7 @@
-from .archs import get_config, reduced
+from .archs import ASSIGNED_ARCHS, get_config, list_archs, reduced
 from .base import (AttentionConfig, BlockSpecEntry, FFNConfig, ModelConfig,
-                   OptimizerConfig, moe_ffn)
+                   OptimizerConfig, SSMConfig, moe_ffn)
 
-__all__ = ["AttentionConfig", "BlockSpecEntry", "FFNConfig", "ModelConfig",
-           "OptimizerConfig", "get_config", "moe_ffn", "reduced"]
+__all__ = ["ASSIGNED_ARCHS", "AttentionConfig", "BlockSpecEntry", "FFNConfig",
+           "ModelConfig", "OptimizerConfig", "SSMConfig", "get_config", "list_archs",
+           "moe_ffn", "reduced"]

@@ -5,14 +5,16 @@ config built here equals the reference's field by field).
 Everything is a frozen dataclass; ``cfg.override(**kw)`` and
 ``cfg.with_ffn(ffn)`` produce variants. Pure data: no torch import.
 ``FFN_KINDS`` and ``FFN_IMPLS`` are the reference's names; the port runs
-every kind (``models/ffn.FFN_REGISTRY``), and only attention mixers.
-``OptimizerConfig`` is the reference's, for the trainer (``runtime/steps``).
+every kind (``models/ffn.FFN_REGISTRY``) and every mixer (attention,
+Mamba2's SSD, zamba2's shared block). ``ModelConfig.param_counts`` is the
+reference's analytic count. ``OptimizerConfig`` is the reference's, for the
+trainer (``runtime/steps``).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 FFN_KINDS = ("dense", "glu", "topk", "pkm", "sigma_moe", "switch", "sbase",
              "noisy_topk", "none")
@@ -119,6 +121,23 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD block config."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 256                   # SSD chunk length
+    n_groups: int = 1                  # B/C groups (like GQA for SSM)
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
 class BlockSpecEntry:
     """One entry of a layer pattern: which mixer + which ffn."""
     mixer: str                          # "attn" | "ssm" | "shared_attn"
@@ -135,7 +154,7 @@ class ModelConfig:
     vocab_size: int = 0
     attention: AttentionConfig = field(default_factory=AttentionConfig)
     ffn: FFNConfig = field(default_factory=FFNConfig)
-    ssm: Optional[object] = None       # SSM mixers are not ported yet
+    ssm: Optional[SSMConfig] = None
     norm: str = "rmsnorm"              # rmsnorm | layernorm
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -158,6 +177,98 @@ class ModelConfig:
 
     def with_ffn(self, ffn: FFNConfig) -> "ModelConfig":
         return dataclasses.replace(self, ffn=ffn)
+
+    def layer_pattern(self) -> List[BlockSpecEntry]:
+        """Expanded per-layer pattern of length n_layers."""
+        pattern = self.pattern or (BlockSpecEntry(mixer="attn", ffn="ffn"),)
+        return [pattern[i % len(pattern)] for i in range(self.n_layers)]
+
+    # ---- analytic parameter counts (the reference's) ----
+    def ffn_params(self, ffn: Optional[FFNConfig] = None) -> Tuple[int, int]:
+        """(total, active) parameter counts of one FFN block."""
+        f = ffn or self.ffn
+        d = self.d_model
+        if f.kind == "none":
+            return 0, 0
+        if f.kind in ("dense", "topk"):
+            p = 2 * d * f.d_ff
+            # top-k still computes the full up-projection (paper Sec 3.1)
+            active = (d * f.d_ff + d * (f.topk_k or f.d_ff) if f.kind == "topk"
+                      else p)
+            return p, active
+        if f.kind == "glu":
+            return 3 * d * f.d_ff, 3 * d * f.d_ff
+        if f.kind == "pkm":
+            p = 2 * f.n_subkeys * (d // 2) + f.n_values * d
+            active = 2 * f.n_subkeys * (d // 2) + f.pkm_heads * f.pkm_knn * d
+            return p, active
+        per_expert = (3 if f.glu_experts else 2) * d * f.expert_size
+        p = f.n_experts * per_expert + f.n_experts * d           # + router
+        p += f.n_shared_experts * per_expert
+        active = (f.k + f.n_shared_experts) * per_expert + f.n_experts * d
+        return p, active
+
+    def attn_params(self) -> int:
+        a = self.attention
+        d = self.d_model
+        p = d * a.q_dim + 2 * d * a.kv_dim + a.q_dim * d
+        if a.kind == "xl_rel":
+            p += d * a.q_dim + 2 * a.q_dim       # W_r and the u/v biases
+        return p
+
+    def ssm_params(self) -> int:
+        if self.ssm is None:
+            return 0
+        s = self.ssm
+        d = self.d_model
+        din = s.d_inner(d)
+        nh = s.n_heads(d)
+        # in_proj: x->(z, x, B, C, dt); conv; A, D, dt_bias; norm; out_proj
+        conv_dim = din + 2 * s.n_groups * s.d_state
+        in_proj = d * (2 * din + 2 * s.n_groups * s.d_state + nh)
+        return in_proj + conv_dim * s.d_conv + 3 * nh + din + din * d
+
+    def param_counts(self) -> Dict[str, int]:
+        """Analytic totals, as the reference: {'total', 'active',
+        'embedding', 'body', 'body_active'} (no norms, biases or learned
+        position tables; a shared block counts once in 'total' and at every
+        use in 'active')."""
+        d = self.d_model
+        emb = self.vocab_size * d
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        body_total = body_active = 0
+        shared_attn_counted = shared_ffn_counted = False
+        for entry in self.layer_pattern():
+            if entry.mixer == "attn":
+                body_total += self.attn_params()
+                body_active += self.attn_params()
+            elif entry.mixer == "shared_attn":
+                if not shared_attn_counted:
+                    body_total += self.attn_params()
+                    shared_attn_counted = True
+                body_active += self.attn_params()
+            elif entry.mixer == "ssm":
+                body_total += self.ssm_params()
+                body_active += self.ssm_params()
+            if entry.ffn == "ffn":
+                t, a = self.ffn_params()
+                body_total += t
+                body_active += a
+            elif entry.ffn == "shared_ffn":
+                t, a = self.ffn_params()
+                if not shared_ffn_counted:
+                    body_total += t
+                    shared_ffn_counted = True
+                body_active += a
+        if self.is_encoder_decoder:
+            # encoder layers (self-attention + FFN) and decoder cross-attention
+            enc = self.n_encoder_layers * (self.attn_params() + self.ffn_params()[0])
+            cross = self.n_layers * self.attn_params()
+            body_total += enc + cross
+            body_active += enc + cross
+        return {"total": emb + head + body_total, "active": head + body_active,
+                "embedding": emb + head, "body": body_total,
+                "body_active": body_active}
 
 
 @dataclass(frozen=True)

@@ -5,11 +5,14 @@ and lists of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``)
 and returns the port's dict of tensors, path for path. The reference's
 ``init_stack`` stacks each pattern entry's layers along a leading
 ``repeats`` axis; the port holds one dict per layer, so those leaves are
-un-stacked here. No JAX import: the port never needs JAX at run time.
+un-stacked here, in the decoder's ``stack`` and the encoder's
+``enc_stack`` alike. A stack's ``shared`` block (zamba2) is one set of
+weights and is carried across as it is. No JAX import: the port never
+needs JAX at run time.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -23,18 +26,24 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)     # a writable copy
 
 
+def _stack(stack: Dict, cfg: ModelConfig, n_layers: Optional[int], device) -> Dict:
+    out = {}
+    if "shared" in stack:
+        out["shared"] = map_leaves(stack["shared"], lambda path, a: _tensor(a, device))
+    out["segments"] = [
+        {name: [map_leaves(entry, lambda path, a, r=r: _tensor(np.asarray(a)[r], device))
+                for r in range(seg.repeats)]
+         for name, entry in seg_tree.items()}
+        for seg, seg_tree in zip(plan_segments(cfg, n_layers), stack["segments"])]
+    return out
+
+
 def from_jax_params(tree: Dict, cfg: ModelConfig, device="cuda") -> Dict:
     """The reference's LM params (numpy leaves) as the port's params."""
-    out = map_leaves({k: v for k, v in tree.items() if k != "stack"},
+    stacks = ("stack", "enc_stack")
+    out = map_leaves({k: v for k, v in tree.items() if k not in stacks},
                      lambda path, a: _tensor(a, device))
-    segs = plan_segments(cfg)
-    stack = tree["stack"]
-    if set(stack) != {"segments"}:
-        raise NotImplementedError("shared blocks are not ported yet")
-    out["stack"] = {"segments": []}
-    for seg, seg_tree in zip(segs, stack["segments"]):
-        out["stack"]["segments"].append({
-            name: [map_leaves(entry, lambda path, a, r=r: _tensor(
-                       np.asarray(a)[r], device)) for r in range(seg.repeats)]
-            for name, entry in seg_tree.items()})
+    out["stack"] = _stack(tree["stack"], cfg, None, device)
+    if "enc_stack" in tree:
+        out["enc_stack"] = _stack(tree["enc_stack"], cfg, cfg.n_encoder_layers, device)
     return out

@@ -4,8 +4,11 @@ Each source has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library, loaded with ``ctypes``. Libraries go
 to ``build/repro_torch/`` at the root of the checkout, named by a hash of
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
-source is never served by a stale library. ``build()`` starts one ``nvcc`` per missing library, all at once,
-and waits for all of them. Nothing here runs at import time.
+source is never served by a stale library. ``build()`` starts one ``nvcc``
+per missing library, all at once, and waits for all of them. A variant
+built with extra ``-D`` defines gets a library of its own, and
+``selected`` makes the kernel's wrapper call it for a block. Nothing here
+runs at import time.
 """
 from __future__ import annotations
 
@@ -15,9 +18,10 @@ import os
 import shutil
 import subprocess
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -28,7 +32,8 @@ SOURCES = {"cvmm": "cvmm.cu", "gather_rows": "gather_rows.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_SELECTED: Dict[str, Tuple[str, ...]] = {}
 
 
 @dataclass
@@ -48,15 +53,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _lib_path(name: str) -> Path:
+def _flags(defines: Sequence[str]) -> Tuple[str, ...]:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def _lib_path(name: str, defines: Sequence[str] = ()) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    tag = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:12]
+    variant = "".join(f"-{d.replace('=', '')}" for d in defines)
+    return BUILD_DIR / f"lib{name}{variant}-{tag}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, BuildInfo]:
-    """Compile every named kernel library that is not built yet, in parallel.
+def build(names: Optional[Iterable[str]] = None,
+          defines: Sequence[str] = ()) -> Dict[str, BuildInfo]:
+    """Compile every named kernel library that is not built yet, in parallel,
+    each with ``-D`` for every entry of ``defines`` (``"NAME=VALUE"``).
 
     Raises RuntimeError with the compiler's output if any build fails."""
     names = list(SOURCES if names is None else names)
@@ -65,7 +77,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, BuildInfo]:
     procs = {}
     nvcc = None
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, defines)
         log = out.with_suffix(".log")
         if out.exists():
             infos[name] = BuildInfo(name, out, 0.0,
@@ -73,7 +85,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, BuildInfo]:
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [nvcc, *_flags(defines), "-o", str(tmp), str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        time.perf_counter(), tmp, out, log)
@@ -93,9 +105,27 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, BuildInfo]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _LIBS.get(name)
+    """The loaded library of kernel ``name``, built with the defines that
+    ``selected`` holds for it (none outside such a block), built first if
+    needed."""
+    key = (name, _SELECTED.get(name, ()))
+    lib = _LIBS.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name].path))
-        _LIBS[name] = lib
+        lib = ctypes.CDLL(str(build([name], key[1])[name].path))
+        _LIBS[key] = lib
     return lib
+
+
+@contextmanager
+def selected(name: str, defines: Sequence[str]):
+    """Inside the block, ``load(name)``, and so kernel ``name``'s wrapper,
+    uses the library built with ``defines``."""
+    saved = _SELECTED.get(name)
+    _SELECTED[name] = tuple(defines)
+    try:
+        yield
+    finally:
+        if saved is None:
+            del _SELECTED[name]
+        else:
+            _SELECTED[name] = saved

@@ -13,7 +13,7 @@
 //
 // Layout: q (B, Sq, H, D), k and v (B, Sk, KV, D), out (B, Sq, H, D), all
 // row-major and contiguous; H % KV == 0; kv_len (B,) int64 or null (= Sk);
-// D in {16, 64, 128}.
+// D in {16, 64, 112, 128}.
 //
 // What bounds it on an H100: at the Engine's long-prompt prefill chunk
 // (granite-moe, 256 rows at q_offset 3,072 over 3,328 valid keys, 24 query
@@ -67,9 +67,14 @@
 //   merges them in split order: M = max m_k, w_k = 2^(m_k - M), out =
 //   sum w_k O_k / max(sum w_k l_k, 1e-20). No float atomics, so every call
 //   gives the same bits; all-empty partials merge to zeros, never NaN.
-// - Head sizes: D 64 and 128 as they are; D 16 (reduced configs only) in
-//   the same body, zero-padded to 64 columns in shared memory (Q K^T takes
-//   one 16-deep step, P V computes 48 zero columns it does not write).
+// - Head sizes: D 64 and 128 as they are; D 16 (reduced configs only) and
+//   D 112 (zamba2) in the same body, zero-padded to whole 64-column atoms in
+//   shared memory (DP = 64 and 128): the Q loads zero the pad and the K/V
+//   boxes zero-fill it, Q K^T takes D / 16 steps (one and seven), P V
+//   computes DP - D zero columns that are never written (NV = D / 2
+//   accumulators a thread, in the output and in a split's partial), and the
+//   output rows are staged at the padded pitch, so that the swizzle of the
+//   16-byte chunks stays inside each row.
 // float32 (flash_fwd_f32), a correctness path the main path never takes:
 // one block per (32-row query tile, query head, batch row) on plain FMAs
 // (no TF32), so it keeps full float32 accuracy.
@@ -83,6 +88,16 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+
+// Planted faults, for the card's gates only (never in the built library):
+// 1 stages the output rows at D's pitch, so the swizzle of D 112's chunks
+// runs past a row; 2 loads Q's pad columns from the next head and reads
+// them in an eighth Q K^T step against K pad columns of 1.0 in odd keys (a
+// pad the same in every key would shift a row's scores alike, which the
+// softmax cannot see).
+#ifndef K7_FAULT
+#define K7_FAULT 0
+#endif
 
 namespace {
 
@@ -127,12 +142,13 @@ enum Bar { kSched = 1, kConsumers = 3, kQ = 4 };
 
 template <int D, int BK>
 struct Shape {
-  static_assert(D == 16 || D == 64 || D == 128, "head sizes 16, 64 and 128");
+  static_assert(D == 16 || D == 64 || D == 112 || D == 128, "head sizes 16, 64, 112 and 128");
   static_assert(BK == 64 || BK == 128, "key tiles of 64 or 128");
-  static constexpr int DP = D < 64 ? 64 : D;   // a row's columns in shared memory
-  static constexpr int KSTEPS = D / 16;        // 16-deep steps of Q K^T
+  static constexpr int DP = (D + 63) / 64 * 64;  // a row's columns in shared memory
+  // 16-deep steps of Q K^T (planted fault 2 also reads the pad)
+  static constexpr int KSTEPS = K7_FAULT == 2 ? DP / 16 : D / 16;
   static constexpr int NO = DP / 2;            // O accumulators a thread holds
-  static constexpr int NV = D / 2;             // of which it writes (D 16: the rest pad)
+  static constexpr int NV = D / 2;             // of which it writes (D 16, 112: the rest pad)
   static constexpr int Q_BYTES = ROWS * DP * 2;          // [warpgroup][atom][64 rows][128 B]
   static constexpr int KV_BYTES = BK * DP * 2;           // K or V of a stage: [atom][BK][128 B]
   static constexpr int STAGE = 2 * KV_BYTES;
@@ -226,7 +242,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_k, const __grid_constant_
       const int row = r0 + tid / 128 * 64 + r, pos = row / grp;
       qrow[i] = pos < sq ? (b * sq + pos) * h + kv * grp + row % grp : -1;
       qv[i] = make_uint4(0, 0, 0, 0);
-      if (qrow[i] >= 0 && ch < D / 8)
+      if (qrow[i] >= 0 && (ch < D / 8 || K7_FAULT == 2))
         qv[i] = *reinterpret_cast<const uint4*>(q + static_cast<size_t>(qrow[i]) * D + ch * 8);
     }
   }
@@ -279,6 +295,17 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_k, const __grid_constant_
     float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.0f, 0.0f};
 
     auto issue_s = [&](uint32_t st) {  // sacc = Q K^T
+#if K7_FAULT == 2
+      if constexpr (S::DP > D) {  // K's pad columns (the last atom's last chunks): 1.0 in odd keys
+        for (int i = tid % 128; i < BK * (S::DP - D) / 8; i += 128) {
+          const int r = i / ((S::DP - D) / 8), c = 8 - (S::DP - D) / 8 + i % ((S::DP - D) / 8);
+          const uint32_t one = r % 2 ? 0x3f803f80u : 0u;
+          *reinterpret_cast<uint4*>(base_p + (st - base) + (S::DP / 64 - 1) * (BK * 128) +
+                                    r * 128 + ((c ^ r % 8) << 4)) = make_uint4(one, one, one, one);
+        }
+        fence_proxy_async();
+      }
+#endif
 #pragma unroll
       for (int kk = 0; kk < S::KSTEPS; ++kk) {
         const uint64_t da = k_sw128_desc(q_wg + (kk / 4) * (64 * 128) + (kk % 4) * 32);
@@ -413,29 +440,32 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_k, const __grid_constant_
 
     // The output rows: rounded to bf16 once into this warpgroup's Q area
     // (free once its last Q K^T is done; row r's 16-byte chunk c at
-    // D r + 16 (c ^ r % SW) bytes x 2, so a warp's stores hit distinct
-    // banks), then stored 16 bytes a thread, whole rows at a time.
+    // 16 (PCH r + (c ^ r % SW)) bytes, PCH chunks a row: D 16's 2, else the
+    // padded row's CH, so that c ^ r % SW stays inside the row and a warp's
+    // stores hit distinct banks), then stored 16 bytes a thread, whole rows
+    // at a time.
     auto store = [&](const float (&acc)[NO], const float (&sum)[2]) {
-      constexpr int NCH = D / 8, SW = NCH < 8 ? NCH : 8;
+      constexpr int NCH = D / 8;
+      constexpr int PCH = D < 64 || K7_FAULT == 1 ? NCH : CH, SW = PCH < 8 ? PCH : 8;
       unsigned char* const stg = base_p + (q_wg - base);
       const float inv[2] = {1.0f / fmaxf(sum[0], 1e-20f), 1.0f / fmaxf(sum[1], 1e-20f)};
 #pragma unroll
       for (int v = 0; v < NV; v += 2) {
         const int r = v / 2 % 2, rr = warp * 16 + g + 8 * r;
-        *reinterpret_cast<__nv_bfloat162*>(stg + rr * D * 2 + ((v / 4 ^ rr % SW) << 4) + 4 * t) =
+        *reinterpret_cast<__nv_bfloat162*>(stg + rr * PCH * 16 + ((v / 4 ^ rr % SW) << 4) + 4 * t) =
             __floats2bfloat162_rn(acc[v] * inv[r], acc[v + 1] * inv[r]);
       }
       named_sync(ws::kQ + wg, 128);
       // With D >= 64 a thread stores the rows it loaded Q from, so the
       // division by grp is not done again (done a row at a time, it cost
-      // about as much as the stores).
-      if constexpr (NCH == CH) {
+      // about as much as the stores); chunks past D are the pad.
+      if constexpr (PCH == CH) {
 #pragma unroll
         for (int i = 0; i < QN; ++i) {
-          const int rr = (tid % 128 + 128 * i) / NCH, ch = (tid % 128 + 128 * i) % NCH;
-          if (qrow[i] >= 0)
+          const int rr = (tid % 128 + 128 * i) / CH, ch = (tid % 128 + 128 * i) % CH;
+          if (qrow[i] >= 0 && ch < NCH)
             *reinterpret_cast<uint4*>(out + static_cast<size_t>(qrow[i]) * D + ch * 8) =
-                *reinterpret_cast<const uint4*>(stg + rr * D * 2 + ((ch ^ rr % SW) << 4));
+                *reinterpret_cast<const uint4*>(stg + rr * PCH * 16 + ((ch ^ rr % SW) << 4));
         }
       } else {
         for (int i = tid % 128; i < 64 * NCH; i += 128) {
@@ -444,7 +474,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap map_k, const __grid_constant_
           if (pos < sq)
             *reinterpret_cast<uint4*>(
                 out + (static_cast<size_t>(b * sq + pos) * h + kv * grp + row % grp) * D + ch * 8) =
-                *reinterpret_cast<const uint4*>(stg + rr * D * 2 + ((ch ^ rr % SW) << 4));
+                *reinterpret_cast<const uint4*>(stg + rr * PCH * 16 + ((ch ^ rr % SW) << 4));
         }
       }
     };
@@ -686,6 +716,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     case 64:
       return launch<64>(q, k, v, kl, out, sc, ct, b, sq, sk, h, kvh, scale, causal, q_offset,
                         dtype, bk, splits, s);
+    case 112:
+      return launch<112>(q, k, v, kl, out, sc, ct, b, sq, sk, h, kvh, scale, causal, q_offset,
+                         dtype, bk, splits, s);
     case 128:
       return launch<128>(q, k, v, kl, out, sc, ct, b, sq, sk, h, kvh, scale, causal, q_offset,
                          dtype, bk, splits, s);

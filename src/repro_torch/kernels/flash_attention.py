@@ -42,7 +42,7 @@ import torch
 from .cvmm import (LAUNCHES, _C, _DTYPE_CODE, _I, _check_cuda, _counters, _fn,
                    _launch_status, _sm_count, _use_plain)
 
-HEAD_DIMS = (16, 64, 128)   # csrc/flash_attention.cu's instantiations
+HEAD_DIMS = (16, 64, 112, 128)   # csrc/flash_attention.cu's instantiations
 
 # ---------------------------------------------------------------------------
 # The bf16 kernel's schedule (csrc/flash_attention.cu, flash_fwd_bf16). An
@@ -56,7 +56,7 @@ HEAD_DIMS = (16, 64, 128)   # csrc/flash_attention.cu's instantiations
 # ---------------------------------------------------------------------------
 ROW_TILE = 128
 MIN_TILES = 4
-FLASH_BK = {16: 128, 64: 128, 128: 64}     # keys a tile, by head size
+FLASH_BK = {16: 128, 64: 128, 112: 64, 128: 64}     # keys a tile, by head size
 SCRATCH_THREADS = 256                       # the kernel's consumer threads
 
 

@@ -6,8 +6,10 @@ detached segment memory (the paper's training architecture).
 These are plain tensor ops in the reference too, so they stay plain torch,
 with one exception: ``attend`` hands the prefill and no-cache calls that
 need no gradient and have no window to K7 (``kernels/flash_attention.py``,
-whose plain version is the chunked core).
-Cross-attention is not ported yet.
+whose plain version is the chunked core): causal self-attention, the
+encoder's non-causal self-attention and the decoder's cross-attention
+over precomputed encoder keys and values (``cross_kv``), which is never
+causal and takes K7 at decode too.
 
 KV caches are updated in place (the reference returns new arrays; its
 engine donates the old ones, so nothing observes the difference) to keep
@@ -202,23 +204,30 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                     kind: str = "", positions: Optional[torch.Tensor] = None,
                     cache: Optional[Dict] = None, cache_index=None,
                     block_table: Optional[torch.Tensor] = None,
-                    seq_lens=None, memory: Optional[torch.Tensor] = None
+                    seq_lens=None, memory: Optional[torch.Tensor] = None,
+                    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One attention sublayer (projections + core + output).
 
     cache: {"k": (B,Smax,KV,D), "v": ...} with cache_index the write start,
     or, with ``block_table``, the paged pool (see ``paged_attend``).
     memory: XL segment memory (B, M, d_model); it gets no gradient.
+    cross_kv: encoder keys and values (B, S_enc, KV, D) for
+    cross-attention: only the queries get RoPE, no cache is read, and the
+    call is never causal.
     Returns (output, updated cache or None)."""
     a = cfg.attention
     kind = kind or a.kind
     b, s, d = x.shape
     scale = a.softmax_scale if a.softmax_scale else a.head_dim ** -0.5
     q = _split_heads(x @ params["wq"].to(x.dtype), a.n_heads, a.head_dim)
-    src = x if memory is None else torch.cat(
-        [memory.detach().to(x.dtype), x], dim=1)
-    k = _split_heads(src @ params["wk"].to(x.dtype), a.n_kv_heads, a.head_dim)
-    v = _split_heads(src @ params["wv"].to(x.dtype), a.n_kv_heads, a.head_dim)
+    if cross_kv is not None:
+        k, v = cross_kv
+    else:
+        src = x if memory is None else torch.cat(
+            [memory.detach().to(x.dtype), x], dim=1)
+        k = _split_heads(src @ params["wk"].to(x.dtype), a.n_kv_heads, a.head_dim)
+        v = _split_heads(src @ params["wv"].to(x.dtype), a.n_kv_heads, a.head_dim)
     if a.qk_norm:
         q = rms_norm_simple(q, params["q_scale"])
         k = rms_norm_simple(k, params["k_scale"])
@@ -229,11 +238,15 @@ def apply_attention(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         positions = torch.arange(s, device=x.device)
     if cfg.pos_encoding == "rope":
         q = apply_rope(q, positions, a.rope_theta)
-        k = apply_rope(k, positions, a.rope_theta)
+        if cross_kv is None:
+            k = apply_rope(k, positions, a.rope_theta)
     win = a.window if kind == "local" else 0
 
     new_cache = None
-    if cache is not None and block_table is not None:
+    if cross_kv is not None:
+        out = attend(q, k, v, causal=False, window=win, scale=scale,
+                     kv_chunk=a.kv_chunk)
+    elif cache is not None and block_table is not None:
         out, new_cache = paged_attend(q, k, v, cache, block_table, cache_index,
                                       seq_lens, scale=scale, window=win,
                                       kv_chunk=a.kv_chunk)

@@ -1,5 +1,5 @@
 """Common layers (the reference's ``models/layers.py``): norms,
-embeddings, dropout, sinusoidal and rotary position embeddings."""
+embeddings, dropout, learned, sinusoidal and rotary position embeddings."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -42,6 +42,17 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
                    dtype=torch.float32, device="cuda") -> torch.Tensor:
     return torch.randn((vocab, d), generator=gen, dtype=dtype,
                        device=device) * (d ** -0.5)
+
+
+def learned_positions(table: torch.Tensor, pos_offset: int, n: int,
+                      dtype) -> torch.Tensor:
+    """Rows [pos_offset, pos_offset + n) of a learned position table
+    (max_len, d) in ``dtype``: whisper's decoder positions, offset by the
+    tokens already in the cache at decode."""
+    if not 0 <= pos_offset <= table.shape[0] - n:
+        raise ValueError(f"positions {pos_offset}..{pos_offset + n - 1} outside the "
+                         f"learned table of {table.shape[0]}")
+    return table[pos_offset:pos_offset + n].to(dtype)
 
 
 def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,

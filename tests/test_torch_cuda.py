@@ -656,6 +656,35 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, case):
         assert bool((got[kv_len.index(0)] == 0).all())
 
 
+# K7 at zamba2-7b's head size 112 (32 query heads on 32 KV heads): a
+# 600-row causal prefill, a 256-row chunk at q_offset 512 over a longer
+# cache with kv_len, a long chunk whose keys split over the card, and two
+# KV heads of a group of 2 (packed rows of two heads) across a kv_len of 0.
+D112_CASES = [
+    (1, 600, 600, 32, 32, 112, True, 0, None),
+    (2, 256, 1024, 32, 32, 112, True, 512, (768, 700)),
+    (1, 128, 4096, 32, 32, 112, True, 3968, (4096,)),
+    (2, 77, 300, 4, 2, 112, False, 0, (0, 300)),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", D112_CASES)
+def test_flash_attention_kernel_head_size_112(cuda, dtype, tol, case):
+    """D 112 pads each row to two 64-column atoms in shared memory; the
+    pad is zero and the output's chunks stay inside their row."""
+    q, k, v, kw = _flash_inputs(cuda, dtype, case)
+    got = K7.flash_attention(q, k, v, **kw)
+    again = K7.flash_attention(q, k, v, **kw)
+    want = K7.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(ints), again.view(ints))
+    if dtype == torch.bfloat16:
+        assert _bf16_close(got, want)
+
+
 def _split_boundary(case) -> int:
     """The first key of the second split of SPLIT_CASE's last item."""
     b, sq, sk, h, kvh, d, causal, q_offset, _ = case

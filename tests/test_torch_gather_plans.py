@@ -3,7 +3,8 @@ CPU: every integer field of ``make_gather_plan`` (one slot per selection)
 and ``make_dedup_gather_plan`` (each selected row once, sorted) equal to the
 reference's, on duplicate-heavy, all-unique, single-token and all-sentinel
 selections; ``gather_supported`` equal to the reference's at every
-d_model of the port's configs; and ``value_sum_path`` keeping CUDA on the
+d_model of the port's configs whose tile ring fits the TPU's VMEM, and
+true past it (K6 keeps no shared memory); and ``value_sum_path`` keeping CUDA on the
 two K6 rungs. The port's plans leave out the TPU DMA
 chunk table (``run_start``/``run_len``/``run_off``), which no Hopper kernel
 reads."""
@@ -71,7 +72,14 @@ def test_gather_supported_matches_reference():
     assert {64, 412, 512, 1024, 1536} <= widths
     for d in sorted(widths):
         for jdt, dt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
-            assert ops.gather_supported(d, dt) == jops.gather_supported(d, jdt), (d, dt)
+            if jops.gather_supported(d, jdt):
+                assert ops.gather_supported(d, dt), (d, dt)
+            else:
+                # Past the TPU's VMEM (only the wider assigned archs, e.g.
+                # deepseek's 7,168 in float32) the reference falls back to
+                # the einsum rung; K6 keeps no shared memory and takes it.
+                assert d > 1536 and ops.gather_supported(d, dt), (d, dt)
+        assert not ops.gather_supported(d, torch.float16)
 
 
 def test_value_sum_path_keeps_cuda_on_k6():
