@@ -11,7 +11,8 @@ paper's PKM and top-K MLP on K6, forward and backward, I-K the paper's MoE
 baselines (Switch, S-BASE, noisy top-k), the capacity dispatch and the
 trainer's gradient accumulation, compression and remat, L-N the reference's
 other architectures (Mamba2, zamba2's hybrid, whisper, pixtral and the
-llama-likes) served from the contiguous cache, with K7 at head size 112:
+llama-likes) served from the contiguous cache, with K7 at head size 112, O
+the tile layer (shared memory, the autotuner's tuned mode):
 
 1. the card: torch's device name and nvidia-smi's name and power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
@@ -152,7 +153,7 @@ G. one full-width training step of each swap (depth 16, bf16), kernels
    its neighbour;
 H. the main path: ``python -m repro_torch.launch.train --arch
    wt103-47m-dense --ffn pkm`` (and ``--ffn topk``, and without ``--ffn``
-   as the dense baseline) ``--steps 30 --batch 32 --seq 256`` in process:
+   as the dense baseline) ``--steps 15 --batch 32 --seq 256`` in process:
    finite, falling loss, exactly 2 K6 a swapped layer every step and no
    K1-K5, the eval step on 4 held-out batches (seed + 1,000) below step 0's
    loss with 1 K6 a layer, step time, tokens/s, peak memory, a profile
@@ -170,7 +171,7 @@ I. gates: the capacity ("einsum") dispatch on one wt103-47m-moe layer (32 x
    the generator ending in the same state, with exact launches;
 J. the baselines trained: S-BASE, noisy top-k and Switch (``BASELINES``,
    built in process) and ``python -m repro_torch.launch.train --arch
-   wt103-47m-dense --ffn sigma_moe`` (the capacity dispatch), 30 steps at
+   wt103-47m-dense --ffn sigma_moe`` (the capacity dispatch), 15 steps at
    batch 32 x 256, full width and depth: finite, falling loss, exact
    launches every step (2 K1, 1 K2, 2 K3, 1 K4 a layer on the sort
    dispatch, none on the capacity dispatch), the dropped share, parameter
@@ -208,6 +209,19 @@ N. mamba2-370m as phase M at full depth (48 SSM layers, no kernel), and
    window; whisper's encoder and cross-attention too, and 4 a decode
    step); llama4-scout's K4 and K6 against their plain versions at its
    widths;
+O. the tile layer: every bf16 kernel instance's shared memory as its
+   launcher requests it (each source's ``repro_*_smem`` query, dynamic and
+   static) equal to ``analysis/smem.py``'s inventory and within the card's
+   opt-in limit (``cudaDevAttrMaxSharedMemoryPerBlockOptin``), every
+   candidate the tuner emits on the analysis grid one of those instances;
+   then tuned mode (``kernels/autotune.py``) on a cache of its own: the
+   picks at serve decode (K4, K6), serve-long's chunk (K4, K6, K7) and the
+   47M training shapes (K1-K5) against their plain versions within their
+   kernels' gates (phases 3, 7 and 15), the wrapper's own decision the same
+   bits as its pick, each pick timed device alone beside the heuristic's; a
+   cold cache times at least one candidate, a warm one none; a 10-step
+   tuned wt103-47m-moe run from a cold cache times candidates in steps 1-2
+   only, its loss finite and falling. Tuning is off again afterwards;
 19. one ``{"kernels": [...]}`` JSON line (with A's wt103-262m-moe rows of
     K1, K2, K3 and K4, their launches from C, K6's rows at F's shapes,
     their launches from H, the K1-K4 rows' launches in J's and K's runs,
@@ -287,10 +301,12 @@ BASELINES = {
 # 1e-2). Switch keeps its 2,048 expert channels and 512 active ones as
 # table4_ablations.py pairs them: 4 experts of 512, top-1, softmax, switch
 # regularizer 1e-2, capacity factor 1.25 on the capacity dispatch.
-BASE_RUN = dict(arch="wt103-47m-moe", batch=32, seq=256, steps=30, option_steps=10)
-# Phases J and K: phase 9's model and batch; the FFN runs 30 steps, the
+BASE_RUN = dict(arch="wt103-47m-moe", batch=32, seq=256, steps=15, option_steps=10)
+# Phases J and K: phase 9's model and batch; the FFN runs 15 steps, the
 # trainer options (gradient accumulation, compression, remat) 10 each.
-SWAP = dict(arch="wt103-47m-dense", kinds=("pkm", "topk"), batch=32, seq=256, steps=30,
+# (30 steps each here and in SWAP until the script passed half its limit
+# on slower hosts: 622-632 s; the timed mean is then of steps 5-14.)
+SWAP = dict(arch="wt103-47m-dense", kinds=("pkm", "topk"), batch=32, seq=256, steps=15,
             eval_batches=4)
 # Phases F-H: the paper's top-K MLP and PKM (Sec. 3.1, 3.2) swapped into the
 # 47M dense baseline by the reference's --ffn rule (PKM: 45**2 = 2,025 values,
@@ -640,6 +656,11 @@ def main() -> None:
     # ------- L-N. K7 at head size 112, zamba2-7b and the other new archs
     d112, arch_launches = _arch_slice(args.seed, dev, gen, K, K7, results)
 
+    # ------------------------------------------------------------- O. tile layer
+    t0 = time.perf_counter()
+    _tile_layer_slice(args.seed, dev, gen, K, K7, ops, results)
+    print(f"[O] took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ------------------------------------------------------------ 19. report
     def row(kernel, shape, source, replaces):
         t = next(t for t in timings if t["kernel"] == kernel and t["shape"] == shape
@@ -694,6 +715,304 @@ def main() -> None:
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
+
+
+def _smem_queries(K):
+    """The card's view of every bf16 kernel instance's shared memory: the
+    opt-in limit, and {(kernel, instance): (dynamic, static) bytes} from each
+    source's ``repro_*_smem`` query (K3's three operand variants apart)."""
+    import ctypes
+    from repro_torch.analysis import smem as S
+    ptr = ctypes.POINTER(ctypes.c_int)
+    i = ctypes.c_int
+
+    def ask(lib, symbol, args):
+        dyn, stat = ctypes.c_int(-1), ctypes.c_int(-1)
+        fn = K._fn(lib, symbol, [i] * len(args) + [ptr, ptr])
+        rc = fn(*args, ctypes.byref(dyn), ctypes.byref(stat))
+        if rc != 0:
+            fail(f"{symbol}{tuple(args)} failed with CUDA error {rc}: not instantiated?")
+        return dyn.value, stat.value
+
+    optin = ctypes.c_int(0)
+    rc = K._fn("cvmm", "repro_smem_optin", [ptr])(ctypes.byref(optin))
+    if rc != 0:
+        fail(f"repro_smem_optin failed with CUDA error {rc}")
+    seen = {}
+    for kernel, inst in S.instances():
+        key = (kernel, tuple(sorted(inst.items())))
+        if kernel == "cvmm":
+            seen[key] = [ask("cvmm", "repro_cvmm_smem", [inst["bn"]])]
+        elif kernel == "fused_w2":
+            seen[key] = [ask("fused_w2", "repro_fused_w2_smem", [inst["bn"]])]
+        elif kernel == "fused_w1":
+            seen[key] = [ask("fused_w1", "repro_fused_w1_smem",
+                             [inst["bn"], inst["glu"], inst["save"]])]
+        elif kernel == "dw_streamed":
+            seen[key] = [ask("dw_streamed", "repro_dw_streamed_smem", [sx, gt])
+                         for sx, gt in ((1, 0), (0, 0), (0, 1))]
+        elif kernel == "cvmm_dw":
+            seen[key] = [ask("cvmm_dw", "repro_cvmm_dw_smem", [])]
+        elif kernel == "flash_attention":
+            seen[key] = [ask("flash_attention", "repro_flash_attention_smem",
+                             [inst["d"], inst["bk"]])]
+        else:
+            seen[key] = [ask("gather_rows", "repro_gather_rows_smem", [inst["vpl"]])]
+    return optin.value, seen
+
+
+def _tile_layer_slice(seed, dev, gen, K, K7, ops, results):
+    """Phase O (see the module docstring). Returns nothing; fails on any
+    gate."""
+    import os
+    import shutil
+    import torch
+    from repro_torch.analysis import smem as S
+    from repro_torch.common import tree_leaves
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.data import DataIterator, make_dataset
+    from repro_torch.kernels import autotune
+    from repro_torch.models import build_model
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    out = results.setdefault("tile_layer", {"card": results.get("card")})
+    # (1) shared memory: the launchers against the inventory and the card's limit
+    optin, seen = _smem_queries(K)
+    rows = []
+    for (kernel, inst), got in seen.items():
+        want = S.launch_bytes(kernel, dict(inst))
+        ok = all(g == want for g in got) and all(d + st <= optin for d, st in got)
+        rows.append({"kernel": kernel, "instance": dict(inst), "card": got, "inventory": want})
+        print(f"[O] smem {kernel} {dict(inst)}: launcher {got}, inventory {want}, "
+              f"opt-in {optin} {'ok' if ok else 'BAD'}")
+        if not ok:
+            fail(f"{kernel} {dict(inst)}: shared memory {got} (dynamic, static) on the card, "
+                 f"{want} in analysis/smem.py's inventory, opt-in limit {optin}")
+    n_cands = 0
+    for family in autotune.families():
+        for shape in S.shape_grid(family):
+            if family == "row_gemm" and shape["b"] != 2:
+                continue
+            for c in autotune.enumerate_candidates(family, shape, budget=optin):
+                kernel, inst = S.launch_instance(family, shape, c)
+                n_cands += 1
+                if (kernel, tuple(sorted(inst.items()))) not in seen:
+                    fail(f"the tuner's candidate {c} for {family} {shape} launches "
+                         f"{kernel} {inst}, which the card was not asked about")
+    print(f"[O] {len(seen)} instances, opt-in limit {optin} bytes on the card; "
+          f"{n_cands} candidates on the analysis grid, each one of them")
+    out["smem"] = {"optin": optin, "instances": rows, "candidates": n_cands}
+
+    # (2) tuned mode on a cache of its own, at the main paths' shapes
+    cache = ROOT / "build" / "autotune_phase_o"
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(cache)
+    autotune.reset()
+    autotune.enable(True)
+    try:
+        cases = _tile_cases(dev, gen, K, K7, ops)
+        picks = []
+        for warm in (False, True):
+            autotune.reset()                      # a new process: memory dropped
+            for case in cases:
+                d = autotune.decide(case["family"], case["shape"], device=dev)
+                if d.provenance != "tuned":
+                    fail(f"{case['label']}: the tuner's decision is {d}")
+                if not warm:
+                    picks.append(d.tiles)
+                elif d.tiles != picks[cases.index(case)]:
+                    fail(f"{case['label']}: the warm cache gave {d.tiles}, the cold "
+                         f"{picks[cases.index(case)]}")
+            timed = autotune.STATS["microbench_calls"]
+            print(f"[O] {'warm' if warm else 'cold'} cache: {timed} candidates timed, "
+                  f"{autotune.STATS['cache_hits']} cache hits, {len(cases)} shapes")
+            if (timed == 0) != warm:
+                fail(f"the {'warm' if warm else 'cold'} cache timed {timed} candidates")
+            out["warm" if warm else "cold"] = dict(autotune.STATS)
+        out["cases"] = []
+        smi = results.get("card")
+        for case, tiles in zip(cases, picks):
+            own = case["run"](None)                 # the wrapper asks the tuner itself
+            pick = case["run"](tiles)
+            want = case["plain"]()
+            torch.cuda.synchronize()
+            if not same_bits(own, pick):
+                fail(f"{case['label']}: the wrapper's own decision is not the tuned pick")
+            ok, err, rel, lim = case["gate"](own, want)
+            heur = autotune.heuristic(case["family"], case["shape"])
+            h_ms = _device_ms(lambda: case["run"](heur))
+            t_ms = _device_ms(lambda: case["run"](tiles))
+            print(f"[O] {case['label']}: heuristic {heur} {h_ms:.4f} ms, tuned {tiles} "
+                  f"{t_ms:.4f} ms device alone ({smi}); tuned vs plain max_abs_err "
+                  f"{err:.3g}, normwise {rel:.3g} ({lim}) {'ok' if ok else 'BAD'}")
+            if not ok:
+                fail(f"{case['label']}: the tuned pick {tiles} disagrees with the plain version")
+            out["cases"].append({"label": case["label"], "family": case["family"],
+                                 "heuristic": heur, "heuristic_ms": h_ms, "tuned": tiles,
+                                 "tuned_ms": t_ms, "max_abs_err": err, "normwise": rel})
+        del cases
+
+        # (3) a 10-step tuned training run from a cold cache
+        shutil.rmtree(cache, ignore_errors=True)
+        autotune.reset()
+        lm = build_model(get_config(TRAIN["arch"]))
+        b, s_len, steps = TRAIN["batch"], TRAIN["seq"], 10
+        opt = OptimizerConfig(total_steps=steps)
+        stream = DataIterator(make_dataset("synthetic", lm.cfg.vocab_size), b, s_len + 1,
+                              seed=seed)
+        state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
+                                 use_mems=True, batch=b, device=dev)
+        step, drop = make_train_step(lm, opt), torch.Generator(device=dev).manual_seed(seed + 1)
+        losses, timed = [], []
+        for _ in range(steps):
+            before = autotune.STATS["microbench_calls"]
+            batch = {"tokens": torch.as_tensor(stream.next()["tokens"], device=dev)}
+            state, m = step(state, batch, drop)
+            losses.append(float(m["loss"]))
+            timed.append(autotune.STATS["microbench_calls"] - before)
+        n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+        print(f"[O] tuned {TRAIN['arch']} ({n_params / 1e6:.1f} M parameters), {steps} steps "
+              f"of {b} x {s_len} from a cold cache: candidates timed per step {timed}; "
+              f"losses {[round(x, 4) for x in losses]}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            fail(f"the tuned training run's loss is not finite and falling: {losses}")
+        if timed[0] == 0 or any(timed[2:]):
+            fail(f"the tuned run timed candidates outside its first two steps: {timed}")
+        out["train"] = {"losses": losses, "timed_per_step": timed,
+                        "decisions": {k: e["tiles"] for k, e in json.loads(
+                            Path(autotune.cache_path(dev.type)).read_text())["entries"].items()}}
+        del state, step, lm
+    finally:
+        autotune.enable(False)
+        autotune.reset()
+        os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+    torch.cuda.empty_cache()
+
+
+def _tile_cases(dev, gen, K, K7, ops):
+    """Phase O's shapes: for each, the tuner's family and shape, ``run(tiles)``
+    (the wrapper at that schedule; None lets the wrapper decide), ``plain()``
+    and the kernel's gate (phase 3's for K4 and K6, phase 7's for K1-K5,
+    phase 15's for K7)."""
+    import torch
+    E, D, G = SERVE_E, SERVE_D, SERVE_G
+    sms = K._sm_count(dev)
+    bf = torch.bfloat16
+    k4_inputs, k6_inputs = _serving_inputs(dev, gen, ops)
+    cases = []
+
+    def bf16_gate(got, want):
+        ok, err, rel, lim = close(got, want, TOL["bfloat16"], "bfloat16", ulps=False)
+        return ok, err, rel, lim
+
+    def exact(got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        return err == 0, err, 0.0, "exact"
+
+    def f32_sums(got, want):
+        err = (got - want).abs().max().item()
+        rel = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, atol=TOL["float32"], rtol=TOL["float32"])
+        return ok, err, rel, f"allclose {TOL['float32']} (float32 sums)"
+
+    def k7_gate(got, want):
+        return close(got, want, K7_TOL["bfloat16"], "bfloat16")
+
+    def row_gemm(label, kernel, fn, plain, m_pad, k_pad, n_pad, n_experts, glu=False,
+                 save=False):
+        cases.append({"label": label, "family": "row_gemm", "gate": bf16_gate,
+                      "shape": {"kernel": kernel, "m_pad": m_pad, "k_pad": k_pad,
+                                "n_pad": n_pad, "glu": glu, "save": save,
+                                "n_experts": n_experts, "b": 2, "sms": sms},
+                      "run": lambda t: fn(None if t is None else t["bn"]), "plain": plain})
+
+    def gather(label, x, rs):
+        cases.append({"label": label, "family": "gather_rows", "gate": exact,
+                      "shape": {"m_pad": rs.numel(), "row_bytes": x.shape[1] * 2, "sms": sms},
+                      "run": lambda t: K.gather_rows(
+                          x, rs, schedule=None if t is None else (t["rows"], t["vpl"])),
+                      "plain": lambda: K.gather_rows_plain(x, rs)})
+
+    # serve decode (8 tokens) and serve-long's prefill chunk: K4 at both widths, K6
+    for m_pad, layout, tag in ((5120, "decode", "serve decode"),
+                               (81920, "prefill", "serve-long chunk")):
+        for k, n in ((D, G), (G, D)):
+            x, te, w = k4_inputs(m_pad, k, n, bf, layout)
+            row_gemm(f"{tag} K4 M_pad {x.shape[0]} {k}->{n}", "cvmm",
+                     lambda bn, x=x, te=te, w=w: K.cvmm(x, te, w, bn=bn),
+                     lambda x=x, te=te, w=w: K.cvmm_plain(x, te, w), x.shape[0], k, n, E)
+    for n_tok, tag in ((8, "serve decode"), (LONG["prefill_chunk"], "serve-long chunk")):
+        x, rs, _ = k6_inputs(n_tok, bf, False)
+        gather(f"{tag} K6 {n_tok} tokens d {D} into {rs.numel()} rows", x, rs)
+    # serve-long's chunk at its last offset: K7 over 4,096 keys
+    sq, sk = LONG["prefill_chunk"], LONG["max_len"]
+    q = torch.randn((1, sq, 24, 64), generator=gen, device=dev).to(bf)
+    kv = [torch.randn((1, sk, 8, 64), generator=gen, device=dev).to(bf) for _ in range(2)]
+    kw = dict(causal=True, scale=64 ** -0.5, q_offset=sk - sq)
+    cases.append({"label": f"serve-long chunk K7 Sq {sq} at {sk - sq}, Sk {sk}, H 24/8",
+                  "family": "flash", "gate": k7_gate,
+                  "shape": {"b": 1, "sq": sq, "h": 24, "kvh": 8, "sk": sk,
+                            "q_offset": sk - sq, "causal": True, "d": 64,
+                            "bk": K7.FLASH_BK[64], "sms": sms},
+                  "run": lambda t: K7.flash_attention(
+                      q, *kv, **kw, splits=None if t is None else t["splits"]),
+                  "plain": lambda: K7.flash_attention_plain(q, *kv, **kw)})
+    # wt103-47m-moe's training step: 32 x 256 tokens, top-4 of 16 experts of 128
+    n, top, e, d, g = TRAIN["batch"] * TRAIN["seq"], 4, 16, 412, 128
+    idx = torch.argsort(torch.rand((n, e), generator=gen, device=dev), 1)[:, :top]
+    plan = ops.make_moe_plan(idx, e, torch.rand((n, top), generator=gen, device=dev))
+    m_pad, rs, te = plan.m_pad, plan.row_src, plan.tile_expert
+    gate = plan.gate_tiles.reshape(-1)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    x, dy = ops._pad_lane(rnd(n, d), 1), ops._pad_lane(rnd(n, d), 1)
+    w1 = ops._pad_w(rnd(e, d, g, scale=d ** -0.5))
+    w2 = ops._pad_w(rnd(e, g, d, scale=g ** -0.5))
+    w2t, w1t = w2.transpose(1, 2).contiguous(), w1.transpose(1, 2).contiguous()
+    u, dh = rnd(m_pad, 128), rnd(m_pad, 128)
+    rows = (n * top / e) ** -0.5
+    dh_dw, dy_dw = (dh.float() * rows).to(bf), (dy.float() * rows).to(bf)
+    x_pad = torch.where((rs < n)[:, None], K.gather_rows_plain(x, rs), 0.0).to(bf)
+    row_gemm(f"47M K1 forward, saving pre-activations, M_pad {m_pad}", "fused_w1",
+             lambda bn: K.fused_w1(x, rs, te, w1, act="relu", save_preact=True, bn=bn),
+             lambda: K.fused_w1_plain(x, rs, te, w1, act="relu", save_preact=True),
+             m_pad, 512, 128, e, save=True)
+    cases[-1]["gate"] = lambda got, want: _all_of(bf16_gate, got, want)
+    row_gemm("47M K1 t0 = dy w2^T", "fused_w1",
+             lambda bn: K.fused_w1(dy, rs, te, w2t, act="identity", bn=bn),
+             lambda: K.fused_w1_plain(dy, rs, te, w2t, act="identity"), m_pad, 512, 128, e)
+    row_gemm("47M K2", "fused_w2", lambda bn: K.fused_w2(u, te, w2, gate, bn=bn),
+             lambda: K.fused_w2_plain(u, te, w2, gate), m_pad, 128, 512, e)
+    row_gemm("47M K4 dX = dh w1^T", "cvmm", lambda bn: K.cvmm(dh, te, w1t, bn=bn),
+             lambda: K.cvmm_plain(dh, te, w1t), m_pad, 128, 512, e)
+    for label, kernel, fn, plain, k_pad, n_pad, stream_x, gated in (
+            ("47M K3 dW1", "dw_streamed",
+             lambda c: K.dw_streamed(x, dh_dw, rs, te, e, stream_x=True, chunk=c),
+             lambda: K.dw_streamed_plain(x, dh_dw, rs, te, e, stream_x=True), 512, 128, 1, 0),
+            ("47M K3 dW2, gated", "dw_streamed",
+             lambda c: K.dw_streamed(u, dy_dw, rs, te, e, stream_x=False, gate=gate, chunk=c),
+             lambda: K.dw_streamed_plain(u, dy_dw, rs, te, e, stream_x=False, gate=gate),
+             128, 512, 0, 1),
+            ("47M K5 dW1 (unfused rung)", "cvmm_dw",
+             lambda c: K.cvmm_dw(x_pad, te, dh_dw, e, chunk=c),
+             lambda: K.cvmm_dw_plain(x_pad, te, dh_dw, e), 512, 128, 0, 0)):
+        cases.append({"label": label, "family": "dw_split", "gate": f32_sums,
+                      "shape": {"kernel": kernel, "m_pad": m_pad, "n_experts": e,
+                                "k_pad": k_pad, "n_pad": n_pad, "b": 2,
+                                "stream_x": stream_x, "gated": gated},
+                      "run": lambda t, fn=fn: fn(None if t is None else t["chunk"]),
+                      "plain": plain})
+    return cases
+
+
+def _all_of(gate, got, want):
+    """``gate`` over every output of a tuple (K1 with saved pre-activations)."""
+    checks = [gate(a, b) for a, b in zip(got, want)]
+    return (all(c[0] for c in checks) and len(got) == len(want),
+            max(c[1] for c in checks), max(c[2] for c in checks), checks[0][3])
 
 
 def _serving_inputs(dev, gen, ops):
@@ -1615,7 +1934,7 @@ def _phase_g(seed, dev, K, ops, routing):
 
 def _phase_h(seed, dev, K, ops):
     """Phase H: the trainer's main path with ``--ffn pkm``, ``--ffn topk``
-    and without ``--ffn`` (the dense baseline), each 30 steps then the eval
+    and without ``--ffn`` (the dense baseline), each SWAP's steps then the eval
     step on 4 held-out batches, a profiled step, and for PKM the share of
     the values the last batch selected. Returns the runs."""
     import torch
@@ -1913,7 +2232,7 @@ def _train_in_process(lm, seed, dev):
 def _phase_j(seed, dev, K, ops):
     """Phase J: S-BASE, noisy top-k and Switch (``BASELINES``, in process)
     and the sigma-MoE swap (``python -m repro_torch.launch.train --arch
-    wt103-47m-dense --ffn sigma_moe``), BASE_RUN's 30 steps each at full
+    wt103-47m-dense --ffn sigma_moe``), BASE_RUN's steps each at full
     width and depth: finite, falling loss, exact launches every step (2 K1,
     1 K2, 2 K3 and 1 K4 a layer on the sort dispatch, none on the capacity
     dispatch), the dropped share, parameter counts equal to the
@@ -3558,19 +3877,20 @@ def planted_fault(K, fault):
             "K6 row read from its neighbour": "gather_rows"}[fault]
     real = getattr(K, name)
 
-    def swapped_gates(u, tile_expert, w, gate):
-        return real(u, tile_expert, w, gate.reshape(-1, 2, 8).flip(1).reshape(-1))
+    def swapped_gates(u, tile_expert, w, gate, **schedule):
+        return real(u, tile_expert, w, gate.reshape(-1, 2, 8).flip(1).reshape(-1),
+                    **schedule)
 
-    def dropped_stage(x, tile_expert, w):
+    def dropped_stage(x, tile_expert, w, **schedule):
         lo = x.shape[1] // 128 * 64
         x = x.clone()
         x[:, lo:lo + 64] = 0
-        return real(x, tile_expert, w)
+        return real(x, tile_expert, w, **schedule)
 
-    def neighbour_row(x, row_src, weight=None):
+    def neighbour_row(x, row_src, weight=None, **schedule):
         rs = row_src.clone()
         rs[5::128] = row_src[6::128]
-        return real(x, rs, weight)
+        return real(x, rs, weight, **schedule)
 
     setattr(K, name, {"fused_w2": swapped_gates, "cvmm": dropped_stage,
                       "gather_rows": neighbour_row}[name])

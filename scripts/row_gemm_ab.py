@@ -210,7 +210,7 @@ def main() -> None:
     default_schedule = getattr(K, "row_gemm_schedule", None)
 
     def forced(bn):
-        def schedule(m_pad, k_pad, n_pad, n_sms, glu=False, save=False):
+        def schedule(m_pad, k_pad, n_pad, n_sms, glu=False, save=False, **_):
             widest = 64 if glu else 128 if save else 256
             if bn > widest or n_pad % bn:
                 return default_schedule(m_pad, k_pad, n_pad, n_sms, glu=glu, save=save)
@@ -220,7 +220,7 @@ def main() -> None:
 
     # --k6: each K6 case with a forced (rows a block, vectors a lane)
     def forced_k6(rows, vpl):
-        return lambda m_pad, row_bytes, n_sms: (rows, vpl)
+        return lambda m_pad, row_bytes, n_sms, **_: (rows, vpl)
 
     # per kind: the schedule function replaced, and its settings by label
     settings = {"gemm": ("row_gemm_schedule", {"default": default_schedule}),
@@ -313,7 +313,8 @@ def k7_main(args, card, dev, gen) -> None:
                     bk, splits = forced
                     K7.FLASH_BK[D] = bk
 
-                    def schedule(b, sq_, h, kvh, sk, off, causal, n_sms, bk_=bk, s_=splits):
+                    def schedule(b, sq_, h, kvh, sk, off, causal, n_sms, bk_=bk, s_=splits,
+                                 **_):
                         _, items, _, _ = default(b, sq_, h, kvh, sk, off, causal, n_sms, bk_)
                         return K7.ROW_TILE, items, s_, items * s_
 

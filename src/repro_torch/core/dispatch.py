@@ -149,9 +149,12 @@ def _sort_path(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
     impl = resolve_impl(cfg, xf.device)
     if impl in ("einsum", "dense"):
         impl = "ragged"
+    skp = None
     if impl.startswith("pallas"):
-        impl = kops.plan_sort_kernels(impl, d, cfg.expert_size, cfg.activation,
-                                      xf.dtype, glu=cfg.glu_experts).rung
+        skp = kops.plan_sort_kernels(impl, d, cfg.expert_size, cfg.activation, xf.dtype,
+                                     glu=cfg.glu_experts, m_pad=kops.plan_m_pad(n * k, e),
+                                     n_experts=e, device=xf.device)
+        impl = skp.rung
     if xf.device.type == "cuda" and not impl.startswith("pallas"):
         raise NotImplementedError(
             f"impl={impl!r} is a plain CPU rung; on CUDA use 'pallas_fused' "
@@ -163,7 +166,7 @@ def _sort_path(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
     if impl == "pallas_fused":
         plan = kops.make_moe_plan(info.idx, e, info.gates)
         return kops.moe_mlp_fused(xf, plan, w1, w2, w1g,
-                                  activation=cfg.activation)
+                                  activation=cfg.activation, tiles=skp.fused)
 
     tok = torch.arange(n, device=xf.device).repeat_interleave(k)
     g_flat = info.gates.reshape(-1)
@@ -171,9 +174,10 @@ def _sort_path(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
         plan = kops.make_moe_plan(info.idx, e)
         src = tok[plan.perm]
         x_sorted = xf[src]
-        h = kops.cvmm_planned(x_sorted, plan, w1)
-        hg = kops.cvmm_planned(x_sorted, plan, w1g) if cfg.glu_experts else None
-        y_sorted = kops.cvmm_planned(_expert_ffn(cfg, h, hg), plan, w2)
+        h = kops.cvmm_planned(x_sorted, plan, w1, skp.planned_w1)
+        hg = (kops.cvmm_planned(x_sorted, plan, w1g, skp.planned_w1)
+              if cfg.glu_experts else None)
+        y_sorted = kops.cvmm_planned(_expert_ffn(cfg, h, hg), plan, w2, skp.planned_w2)
         y_sorted = y_sorted * g_flat[plan.perm][:, None].to(y_sorted.dtype)
         return torch.zeros_like(xf).index_add_(0, src, y_sorted)
 

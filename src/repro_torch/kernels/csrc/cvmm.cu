@@ -69,3 +69,21 @@ extern "C" int repro_cvmm(const void* x, const void* tile_expert, const void* w,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The shared memory of the bf16 instance for items bn wide: the dynamic
+// bytes the launcher requests and the kernel's static bytes
+// (analysis/smem.py holds both to its inventory). Returns
+// cudaErrorInvalidValue for a width not instantiated.
+extern "C" int repro_cvmm_smem(int bn, int* dynamic, int* stat) {
+  return static_cast<int>(smem_wgmma<false, false, false>(bn, dynamic, stat));
+}
+
+// The shared memory a block of the current device may opt in to
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin), the limit of every launch.
+extern "C" int repro_smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+}

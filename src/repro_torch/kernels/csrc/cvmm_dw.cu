@@ -49,3 +49,9 @@ extern "C" int repro_cvmm_dw(const void* x_pad, const void* tile_expert, const v
       static_cast<float*>(out), static_cast<float*>(scratch), static_cast<int*>(counters),
       k_pad, n_pad, n_experts, chunk, dtype, static_cast<cudaStream_t>(stream)));
 }
+
+// The shared memory of the bf16 instance (every chunk size launches the
+// same one), as repro_cvmm_smem.
+extern "C" int repro_cvmm_dw_smem(int* dynamic, int* stat) {
+  return static_cast<int>(smem<kAligned, false>(dynamic, stat));
+}

@@ -450,4 +450,17 @@ cudaError_t launch(const void* a, const void* b, const int* rs, int n_rows, cons
   return cudaGetLastError();
 }
 
+// The bf16 instance's shared memory: the dynamic bytes the launcher
+// requests (tc::SMEM, whatever the chunk) and the kernel's static bytes
+// (barriers and the combine's reduction, from cudaFuncGetAttributes).
+template <int OPERANDS, bool GATE>
+cudaError_t smem(int* dynamic, int* stat) {
+  cudaFuncAttributes attr{};
+  const cudaError_t err = cudaFuncGetAttributes(&attr, dw_bf16<OPERANDS, GATE>);
+  if (err != cudaSuccess) return err;
+  *dynamic = tc::SMEM;
+  *stat = static_cast<int>(attr.sharedSizeBytes);
+  return cudaSuccess;
+}
+
 }  // namespace dwgemm

@@ -80,3 +80,12 @@ extern "C" int repro_dw_streamed(const void* x, const void* g, const void* row_s
                                   n_experts, chunk, dtype, s);
   return static_cast<int>(err);
 }
+
+// The shared memory of the bf16 instance for stream_x and a gate as given
+// (every chunk size launches the same instance), as repro_cvmm_smem.
+extern "C" int repro_dw_streamed_smem(int stream_x, int gated, int* dynamic, int* stat) {
+  if (stream_x && gated) return static_cast<int>(cudaErrorInvalidValue);
+  if (stream_x) return static_cast<int>(smem<kGatherA, false>(dynamic, stat));
+  if (gated) return static_cast<int>(smem<kGatherB, true>(dynamic, stat));
+  return static_cast<int>(smem<kGatherB, false>(dynamic, stat));
+}

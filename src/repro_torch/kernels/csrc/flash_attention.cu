@@ -688,6 +688,23 @@ int launch(const void* q, const void* k, const void* v, const long long* kv_len,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int D, int BK>
+int smem_bf16(int* dynamic, int* stat) {
+  cudaFuncAttributes attr{};
+  const cudaError_t err = cudaFuncGetAttributes(&attr, flash_fwd_bf16<D, BK>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *dynamic = ws::Shape<D, BK>::SMEM;
+  *stat = static_cast<int>(attr.sharedSizeBytes);
+  return 0;
+}
+
+template <int D>
+int smem(int bk, int* dynamic, int* stat) {
+  if (bk == 64) return smem_bf16<D, 64>(dynamic, stat);
+  if (bk == 128) return smem_bf16<D, 128>(dynamic, stat);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. kv_len: (B,) int64 on the device, or
@@ -724,5 +741,19 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                          dtype, bk, splits, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The shared memory of the bf16 instance for head size d and bk keys a
+// tile (every split count launches the same one): the dynamic bytes the
+// launcher requests and the kernel's static bytes (analysis/smem.py holds
+// both to its inventory).
+extern "C" int repro_flash_attention_smem(int d, int bk, int* dynamic, int* stat) {
+  switch (d) {
+    case 16: return smem<16>(bk, dynamic, stat);
+    case 64: return smem<64>(bk, dynamic, stat);
+    case 112: return smem<112>(bk, dynamic, stat);
+    case 128: return smem<128>(bk, dynamic, stat);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -88,3 +88,18 @@ extern "C" int repro_fused_w1(const void* x, const void* row_src, const void* ti
                                n_experts, act, dtype, bn, grid, s);
   return static_cast<int>(err);
 }
+
+// The shared memory of the bf16 instance for items bn wide with GLU and
+// save_preact as given, as repro_cvmm_smem.
+extern "C" int repro_fused_w1_smem(int bn, int glu, int save, int* dynamic, int* stat) {
+  cudaError_t err;
+  if (glu && save)
+    err = smem_wgmma<true, true, true>(bn, dynamic, stat);
+  else if (glu)
+    err = smem_wgmma<true, true, false>(bn, dynamic, stat);
+  else if (save)
+    err = smem_wgmma<true, false, true>(bn, dynamic, stat);
+  else
+    err = smem_wgmma<true, false, false>(bn, dynamic, stat);
+  return static_cast<int>(err);
+}

@@ -59,3 +59,9 @@ extern "C" int repro_fused_w2(const void* u, const void* tile_expert, const void
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The shared memory of the bf16 instance for items bn wide, as
+// repro_cvmm_smem.
+extern "C" int repro_fused_w2_smem(int bn, int* dynamic, int* stat) {
+  return static_cast<int>(smem_wgmma<false, false, false, true>(bn, dynamic, stat));
+}

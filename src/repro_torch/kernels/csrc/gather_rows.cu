@@ -124,6 +124,16 @@ void launch_vpl(const void* x, const int* rs, const float* wt, void* out, int n_
     launch<T, 4>(x, rs, wt, out, n_rows, m_pad, nvec, rows, s);
 }
 
+template <int VPL>
+cudaError_t smem(int* dynamic, int* stat) {
+  cudaFuncAttributes attr{};
+  const cudaError_t err = cudaFuncGetAttributes(&attr, gather_rows_kernel<__nv_bfloat16, VPL>);
+  if (err != cudaSuccess) return err;
+  *dynamic = 0;
+  *stat = static_cast<int>(attr.sharedSizeBytes);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; weight may be null. rows (1, 2, 4 or 8
@@ -149,4 +159,14 @@ extern "C" int repro_gather_rows(const void* x, const void* row_src, const void*
   else
     launch_vpl<float>(x, rs, wt, out, n_rows, m_pad, nvec, rows, vpl, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The shared memory of the bf16 instance for vpl: none requested
+// dynamically (each warp copies its slice of a row through registers), and
+// the kernel's static bytes, as repro_cvmm_smem.
+extern "C" int repro_gather_rows_smem(int vpl, int* dynamic, int* stat) {
+  if (vpl == 1) return static_cast<int>(smem<1>(dynamic, stat));
+  if (vpl == 2) return static_cast<int>(smem<2>(dynamic, stat));
+  if (vpl == 4) return static_cast<int>(smem<4>(dynamic, stat));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

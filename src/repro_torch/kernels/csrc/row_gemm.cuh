@@ -48,6 +48,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace rowgemm {
@@ -360,32 +362,52 @@ cudaError_t launch_wgmma_bn(int grid, const bf16* a, const int* rs, int n_rows, 
   return cudaGetLastError();
 }
 
+// The item widths instantiated for a (GLU, SAVE) variant: 64, 128 or
+// (without GLU and SAVE) 256; with GLU 64 (kernels/autotune.py's
+// ROW_GEMM_WIDTHS lists the same). Calls f(std::integral_constant<int, BN>)
+// for bn, or returns cudaErrorInvalidValue for a width not instantiated.
+template <bool GLU, bool SAVE, class F>
+cudaError_t with_bn(int bn, F&& f) {
+  if (bn == 64) return f(std::integral_constant<int, 64>{});
+  if constexpr (!GLU) {
+    if (bn == 128) return f(std::integral_constant<int, 128>{});
+    if constexpr (!SAVE) {
+      if (bn == 256) return f(std::integral_constant<int, 256>{});
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
 // bf16 through row_gemm_wgmma with items bn columns wide on a persistent
-// grid of `grid` blocks, both from kernels/cvmm.py's row_gemm_schedule: bn
-// is 64, 128 or (without GLU and SAVE) 256; with GLU 64. GATE (K2) scales
-// each row by gate[row]. The caller has checked the shapes.
+// grid of `grid` blocks, both from kernels/cvmm.py's row_gemm_schedule (bn
+// one of with_bn's widths). GATE (K2) scales each row by gate[row]. The
+// caller has checked the shapes.
 template <bool GATHER, bool GLU, bool SAVE, bool GATE = false>
 cudaError_t launch_wgmma(int bn, int grid, const bf16* a, const int* rs, int n_rows,
                          const int* te, const bf16* w, const bf16* wg, const float* gate,
                          bf16* u, bf16* h, bf16* hg, int m_pad, int k_pad, int n_pad,
                          int n_experts, int act, cudaStream_t s) {
-  if (bn == 64)
-    return launch_wgmma_bn<64, GATHER, GLU, SAVE, GATE>(grid, a, rs, n_rows, te, w, wg, gate,
-                                                        u, h, hg, m_pad, k_pad, n_pad,
-                                                        n_experts, act, s);
-  if constexpr (!GLU) {
-    if (bn == 128)
-      return launch_wgmma_bn<128, GATHER, GLU, SAVE, GATE>(grid, a, rs, n_rows, te, w, wg,
-                                                           gate, u, h, hg, m_pad, k_pad, n_pad,
-                                                           n_experts, act, s);
-    if constexpr (!SAVE) {
-      if (bn == 256)
-        return launch_wgmma_bn<256, GATHER, GLU, SAVE, GATE>(grid, a, rs, n_rows, te, w, wg,
-                                                             gate, u, h, hg, m_pad, k_pad,
-                                                             n_pad, n_experts, act, s);
-    }
-  }
-  return cudaErrorInvalidValue;
+  return with_bn<GLU, SAVE>(bn, [&](auto c) {
+    return launch_wgmma_bn<decltype(c)::value, GATHER, GLU, SAVE, GATE>(
+        grid, a, rs, n_rows, te, w, wg, gate, u, h, hg, m_pad, k_pad, n_pad, n_experts, act, s);
+  });
+}
+
+// The shared memory of the instance launch_wgmma runs for bn: the dynamic
+// bytes it requests (Shape::SMEM) and the kernel's static bytes (its ring's
+// barriers, from cudaFuncGetAttributes), for analysis/smem.py's inventory.
+template <bool GATHER, bool GLU, bool SAVE, bool GATE = false>
+cudaError_t smem_wgmma(int bn, int* dynamic, int* stat) {
+  return with_bn<GLU, SAVE>(bn, [&](auto c) {
+    constexpr int BN = decltype(c)::value;
+    cudaFuncAttributes attr{};
+    const cudaError_t err =
+        cudaFuncGetAttributes(&attr, row_gemm_wgmma<BN, GATHER, GLU, SAVE, GATE>);
+    if (err != cudaSuccess) return err;
+    *dynamic = ws::Shape<BN, GLU, SAVE>::SMEM;
+    *stat = static_cast<int>(attr.sharedSizeBytes);
+    return cudaSuccess;
+  });
 }
 
 // ------------------------------------------------------------- float32 path

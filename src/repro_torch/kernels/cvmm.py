@@ -24,7 +24,11 @@ use N) marks a slack slot, which reads as a zero row.
 In bf16, K1, K2 and K4 are one persistent ``wgmma`` walk over (row tile,
 column block) items (``csrc/row_gemm.cuh``; ``row_gemm_schedule`` sizes
 it), K3 and K5 one split over each expert's tiles (``csrc/dw_gemm.cuh``;
-``dw_split``); K6 spreads its rows over the card (``gather_rows_schedule``).
+``dw_chunk`` and ``dw_split``); K6 spreads its rows over the card
+(``gather_rows_schedule``). Each schedule comes from ``kernels/autotune.py``:
+by default the fixed formula described beside each function here, with
+tuning on a timed choice. A caller that resolved a schedule already passes
+it (``bn=``, ``chunk=``, ``schedule=``), as ``ops.FusedTiles`` does.
 
 Each wrapper takes its plain PyTorch version (``*_plain``) only for tensors
 on the CPU. For a CUDA tensor it launches the kernel on the current stream,
@@ -130,22 +134,24 @@ ROW_GEMM_WIDE_MIN_K = 512
 
 
 def row_gemm_schedule(m_pad: int, k_pad: int, n_pad: int, n_sms: int,
-                      glu: bool = False, save: bool = False) -> Tuple[int, int, int]:
+                      glu: bool = False, save: bool = False, *, kernel: str = "cvmm",
+                      n_experts: int = 1, dtype_bytes: int = 2, device=None,
+                      bn: Optional[int] = None) -> Tuple[int, int, int]:
     """(item width BN, items, grid) of one bf16 K1, K2 or K4 call of shape
     (M_pad, K_pad) x (K_pad, N_pad) on a card of ``n_sms`` SMs: items are
     (128-row tile, BN-column block) pairs, item i covering tile i // (N_pad /
     BN) and columns BN * (i % (N_pad / BN)), and the grid is min(items,
-    n_sms) persistent blocks (csrc/row_gemm.cuh)."""
-    n_tiles = m_pad // TM
-    shallow = k_pad < ROW_GEMM_WIDE_MIN_K
-    widest = 64 if glu else 128 if save or shallow else 256
-    bn = 64
-    for width in (256, 128):
-        if (width <= widest and n_pad % width == 0
-                and n_tiles * (n_pad // width) >= ROW_GEMM_MIN_ITEMS_PER_SM * n_sms):
-            bn = width
-            break
-    items = n_tiles * (n_pad // bn)
+    n_sms) persistent blocks (csrc/row_gemm.cuh). BN is ``bn`` if given,
+    else the tuner's ``row_gemm`` decision for ``kernel`` ("fused_w1",
+    "fused_w2" or "cvmm") over ``n_experts`` weight blocks on ``device``."""
+    if bn is None:
+        from . import autotune
+        bn = autotune.decide("row_gemm", {
+            "kernel": kernel, "m_pad": m_pad, "k_pad": k_pad, "n_pad": n_pad,
+            "glu": glu, "save": save, "n_experts": n_experts, "b": dtype_bytes,
+            "sms": n_sms},
+            device=device).tiles["bn"]
+    items = m_pad // TM * (n_pad // bn)
     return bn, items, max(1, min(items, n_sms))
 
 
@@ -174,9 +180,10 @@ def _sm_count(dev: torch.device) -> int:
 # ---------------------------------------------------------------------------
 
 def cvmm_plain(x_pad: torch.Tensor, tile_expert: torch.Tensor,
-               w: torch.Tensor) -> torch.Tensor:
+               w: torch.Tensor, *, bn: Optional[int] = None) -> torch.Tensor:
     """Plain version of ``cvmm``: per-tile batched matmul in float32, rounded
-    to x's dtype once (the kernel's f32 accumulation)."""
+    to x's dtype once (the kernel's f32 accumulation). Like every plain
+    version it takes the wrapper's schedule argument and has no use for it."""
     m_pad, k = x_pad.shape
     xt = x_pad.reshape(m_pad // TM, TM, k).float()
     out = torch.bmm(xt, w[tile_expert.long()].float())
@@ -184,9 +191,10 @@ def cvmm_plain(x_pad: torch.Tensor, tile_expert: torch.Tensor,
 
 
 def cvmm(x_pad: torch.Tensor, tile_expert: torch.Tensor,
-         w: torch.Tensor) -> torch.Tensor:
+         w: torch.Tensor, *, bn: Optional[int] = None) -> torch.Tensor:
     """x_pad (M_pad, K_pad) tile-aligned rows; tile_expert (M_pad//TM,) int32;
-    w (E, K_pad, N_pad) in x's dtype. Returns (M_pad, N_pad) in x's dtype."""
+    w (E, K_pad, N_pad) in x's dtype; ``bn`` the item width, or None for
+    ``row_gemm_schedule``'s. Returns (M_pad, N_pad) in x's dtype."""
     m_pad, k_pad = x_pad.shape
     e, k_w, n_pad = w.shape
     if (k_w != k_pad or m_pad % TM or k_pad % LANE or n_pad % LANE
@@ -203,7 +211,10 @@ def cvmm(x_pad: torch.Tensor, tile_expert: torch.Tensor,
     if tile_expert.dtype != torch.int32:
         raise ValueError("cvmm: tile_expert must be int32")
     out = torch.empty((m_pad, n_pad), dtype=x_pad.dtype, device=x_pad.device)
-    bn, _, grid = row_gemm_schedule(m_pad, k_pad, n_pad, _sm_count(x_pad.device))
+    bn, _, grid = row_gemm_schedule(m_pad, k_pad, n_pad, _sm_count(x_pad.device),
+                                    kernel="cvmm", n_experts=e,
+                                    dtype_bytes=x_pad.element_size(), device=x_pad.device,
+                                    bn=bn)
     fn = _fn("cvmm", "repro_cvmm", [_C] * 4 + [_I] * 7 + [_C])
     rc = fn(x_pad.data_ptr(), tile_expert.data_ptr(), w.data_ptr(),
             out.data_ptr(), m_pad, k_pad, n_pad, e,
@@ -227,21 +238,21 @@ def cvmm(x_pad: torch.Tensor, tile_expert: torch.Tensor,
 GATHER_ROWS_VPL = 2
 
 
-def gather_rows_schedule(m_pad: int, row_bytes: int, n_sms: int) -> Tuple[int, int]:
+def gather_rows_schedule(m_pad: int, row_bytes: int, n_sms: int, *,
+                         device=None) -> Tuple[int, int]:
     """(rows a block, 16-byte vectors a lane) of one K6 call on a card of
-    ``n_sms`` SMs; the grid is (M_pad / rows, ceil(vectors a row / (32 *
-    vectors a lane)))."""
-    nvec = row_bytes // 16
-    vpl = GATHER_ROWS_VPL if nvec > 32 else 1    # a short row: one pass a lane
-    slices = -(-nvec // (32 * vpl))
-    for rows in (8, 4, 2):
-        if m_pad // rows * slices >= n_sms:
-            return rows, vpl
-    return 1, vpl
+    ``n_sms`` SMs, the tuner's ``gather_rows`` decision (by default the
+    rule above; a row of at most 32 vectors takes one a lane); the grid is
+    (M_pad / rows, ceil(vectors a row / (32 * vectors a lane)))."""
+    from . import autotune
+    tiles = autotune.decide("gather_rows", {"m_pad": m_pad, "row_bytes": row_bytes,
+                                            "sms": n_sms}, device=device).tiles
+    return tiles["rows"], tiles["vpl"]
 
 
 def gather_rows_plain(x: torch.Tensor, row_src: torch.Tensor,
-                      weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      weight: Optional[torch.Tensor] = None, *,
+                      schedule: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Plain version of ``gather_rows``: index a copy of x with one zero row
     appended, so every sentinel (any index outside [0, N)) reads zeros."""
     n = x.shape[0]
@@ -254,10 +265,12 @@ def gather_rows_plain(x: torch.Tensor, row_src: torch.Tensor,
 
 
 def gather_rows(x: torch.Tensor, row_src: torch.Tensor,
-                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                weight: Optional[torch.Tensor] = None, *,
+                schedule: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """x (N, K_pad); row_src (M_pad,) int32 with a sentinel (any index
     outside [0, N); the plans use N) on slack slots; weight (M_pad,) float32
-    or None. Returns (M_pad, K_pad) in x's dtype."""
+    or None; ``schedule`` (rows a block, vectors a lane), or None for
+    ``gather_rows_schedule``'s. Returns (M_pad, K_pad) in x's dtype."""
     n_rows, k_pad = x.shape
     (m_pad,) = row_src.shape
     if m_pad % TM or (k_pad * x.element_size()) % 16:
@@ -275,8 +288,8 @@ def gather_rows(x: torch.Tensor, row_src: torch.Tensor,
     if row_src.dtype != torch.int32:
         raise ValueError("gather_rows: row_src must be int32")
     out = torch.empty((m_pad, k_pad), dtype=x.dtype, device=x.device)
-    rows, vpl = gather_rows_schedule(m_pad, k_pad * x.element_size(),
-                                     _sm_count(x.device))
+    rows, vpl = schedule or gather_rows_schedule(m_pad, k_pad * x.element_size(),
+                                                 _sm_count(x.device), device=x.device)
     fn = _fn("gather_rows", "repro_gather_rows", [_C] * 4 + [_I] * 6 + [_C])
     rc = fn(x.data_ptr(), row_src.data_ptr(),
             None if weight is None else weight.data_ptr(), out.data_ptr(),
@@ -299,7 +312,7 @@ def _tiles(a: torch.Tensor) -> torch.Tensor:
 def fused_w1_plain(x: torch.Tensor, row_src: torch.Tensor,
                    tile_expert: torch.Tensor, w1: torch.Tensor,
                    w1g: Optional[torch.Tensor] = None, *, act: str = "relu",
-                   save_preact: bool = False):
+                   save_preact: bool = False, bn: Optional[int] = None):
     """Plain version of ``fused_w1``: gather, per-tile products in float32,
     the activation (and GLU) in float32, each output rounded once."""
     m_pad = row_src.shape[0]
@@ -318,11 +331,11 @@ def fused_w1_plain(x: torch.Tensor, row_src: torch.Tensor,
 
 def fused_w1(x: torch.Tensor, row_src: torch.Tensor, tile_expert: torch.Tensor,
              w1: torch.Tensor, w1g: Optional[torch.Tensor] = None, *,
-             act: str = "relu", save_preact: bool = False):
+             act: str = "relu", save_preact: bool = False, bn: Optional[int] = None):
     """x (N, K_pad) unsorted rows; row_src (M_pad,) int32 with sentinels;
-    tile_expert (M_pad//TM,) int32; w1, w1g (E, K_pad, G_pad) in x's dtype.
-    Returns u (M_pad, G_pad) in x's dtype, or with ``save_preact`` the tuple
-    (u, h) or (u, h, hg) with the pre-activations."""
+    tile_expert (M_pad//TM,) int32; w1, w1g (E, K_pad, G_pad) in x's dtype;
+    ``bn`` as for ``cvmm``. Returns u (M_pad, G_pad) in x's dtype, or with
+    ``save_preact`` the tuple (u, h) or (u, h, hg) with the pre-activations."""
     n_rows, k_pad = x.shape
     (m_pad,) = row_src.shape
     e, k_w, g_pad = w1.shape
@@ -349,7 +362,9 @@ def fused_w1(x: torch.Tensor, row_src: torch.Tensor, tile_expert: torch.Tensor,
             for _ in range(n_out)]
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - n_out)
     bn, _, grid = row_gemm_schedule(m_pad, k_pad, g_pad, _sm_count(x.device),
-                                    glu=w1g is not None, save=save_preact)
+                                    glu=w1g is not None, save=save_preact,
+                                    kernel="fused_w1", n_experts=e,
+                                    dtype_bytes=x.element_size(), device=x.device, bn=bn)
     fn = _fn("fused_w1", "repro_fused_w1",
              [_C] * 8 + [_I] * 9 + [_C])
     rc = fn(x.data_ptr(), row_src.data_ptr(), tile_expert.data_ptr(),
@@ -367,7 +382,8 @@ def fused_w1(x: torch.Tensor, row_src: torch.Tensor, tile_expert: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def fused_w2_plain(u_pad: torch.Tensor, tile_expert: torch.Tensor,
-                   w2: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+                   w2: torch.Tensor, gate: torch.Tensor, *,
+                   bn: Optional[int] = None) -> torch.Tensor:
     """Plain version of ``fused_w2``: per-tile products in float32, times
     the float32 gate, rounded once."""
     m_pad = u_pad.shape[0]
@@ -376,10 +392,10 @@ def fused_w2_plain(u_pad: torch.Tensor, tile_expert: torch.Tensor,
 
 
 def fused_w2(u_pad: torch.Tensor, tile_expert: torch.Tensor, w2: torch.Tensor,
-             gate: torch.Tensor) -> torch.Tensor:
+             gate: torch.Tensor, *, bn: Optional[int] = None) -> torch.Tensor:
     """u_pad (M_pad, G_pad) tile-aligned; tile_expert (M_pad//TM,) int32;
-    w2 (E, G_pad, N_pad) in u's dtype; gate (M_pad,) float32. Returns
-    (M_pad, N_pad) in u's dtype."""
+    w2 (E, G_pad, N_pad) in u's dtype; gate (M_pad,) float32; ``bn`` as
+    for ``cvmm``. Returns (M_pad, N_pad) in u's dtype."""
     m_pad, g_pad = u_pad.shape
     e, g_w, n_pad = w2.shape
     if (g_w != g_pad or m_pad % TM or g_pad % LANE or n_pad % LANE
@@ -397,7 +413,10 @@ def fused_w2(u_pad: torch.Tensor, tile_expert: torch.Tensor, w2: torch.Tensor,
     if tile_expert.dtype != torch.int32:
         raise ValueError("fused_w2: tile_expert must be int32")
     out = torch.empty((m_pad, n_pad), dtype=u_pad.dtype, device=u_pad.device)
-    bn, _, grid = row_gemm_schedule(m_pad, g_pad, n_pad, _sm_count(u_pad.device))
+    bn, _, grid = row_gemm_schedule(m_pad, g_pad, n_pad, _sm_count(u_pad.device),
+                                    kernel="fused_w2", n_experts=e,
+                                    dtype_bytes=u_pad.element_size(), device=u_pad.device,
+                                    bn=bn)
     fn = _fn("fused_w2", "repro_fused_w2", [_C] * 5 + [_I] * 7 + [_C])
     rc = fn(u_pad.data_ptr(), tile_expert.data_ptr(), w2.data_ptr(),
             gate.data_ptr(), out.data_ptr(), m_pad, g_pad, n_pad, e,
@@ -410,15 +429,29 @@ def fused_w2(u_pad: torch.Tensor, tile_expert: torch.Tensor, w2: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # K3 and K5's split (csrc/dw_gemm.cuh): an expert's tiles go in chunks of at
-# most DW_CHUNK tiles, one block per (chunk, output block); experts of
+# most ``chunk`` tiles, one block per (chunk, output block); experts of
 # several chunks sum float32 partials from a scratch array in chunk order.
 # ---------------------------------------------------------------------------
 
 # 5 gives wt103-47m-moe's training step (273 tiles, 16 experts, 4 output
 # blocks) about 270 blocks with work: two waves on the H100's 132 SMs.
 # Smaller chunks balance better but pay each block's start and combine more
-# often (scripts/dw_chunk_sweep.py times the choices).
+# often (scripts/dw_chunk_sweep.py times the choices). It is the tuner's
+# heuristic; ``dw_chunk`` gives a call's chunk.
 DW_CHUNK = 5
+
+
+def dw_chunk(kernel: str, m_pad: int, n_experts: int, k_pad: int, n_pad: int,
+             dtype_bytes: int, *, stream_x: bool = False, gated: bool = False,
+             device=None) -> int:
+    """The chunk of one K3 ("dw_streamed", with its operand variant) or K5
+    ("cvmm_dw") call: the tuner's ``dw_split`` decision, ``DW_CHUNK`` by
+    default."""
+    from . import autotune
+    return autotune.decide("dw_split", {
+        "kernel": kernel, "m_pad": m_pad, "n_experts": n_experts, "k_pad": k_pad,
+        "n_pad": n_pad, "b": dtype_bytes, "stream_x": int(stream_x), "gated": int(gated)},
+        device=device).tiles["chunk"]
 
 
 def dw_split(n_tiles: int, n_experts: int, chunk: int) -> Tuple[int, int]:
@@ -431,6 +464,49 @@ def dw_split(n_tiles: int, n_experts: int, chunk: int) -> Tuple[int, int]:
     chunk that starts at tile t."""
     n_chunks = -(-n_tiles // chunk)
     return n_chunks + n_experts, 2 * n_chunks
+
+
+def dw_split_items(tile_expert, n_experts: int, chunk: int):
+    """The work items of the split over a non-decreasing ``tile_expert`` (a
+    sequence of ints below ``n_experts``), as csrc/dw_gemm.cuh's
+    ``find_item`` gives them out,
+    in item order: for each item with tiles, (expert, first tile, end tile,
+    its chunk index within the expert, the expert's chunk count, its
+    partial slot); None for an item with nothing to do. An expert with no
+    tiles gets (expert, 0, 0, 0, 1, -1), its zeros."""
+    te = [int(e) for e in tile_expert]
+    n_tiles = len(te)
+    n_items, _ = dw_split(n_tiles, 0, chunk)
+    lo, hi = {}, {}
+    for t, e in enumerate(te):
+        lo.setdefault(e, t)
+        hi[e] = t + 1
+
+    def describe(e, t0, t1):
+        k = t0 // chunk - lo[e] // chunk
+        count = (hi[e] - 1) // chunk - lo[e] // chunk + 1
+        slot0 = 2 * (lo[e] // chunk) + (lo[e] % chunk != 0)
+        slot = slot0 if k == 0 else 2 * (lo[e] // chunk + k)
+        return (e, t0, t1, k, count, slot)
+
+    items = []
+    for q in range(n_items + n_experts):
+        if q < n_items:
+            e = te[q * chunk]
+            t0 = q * chunk
+            if t0 < lo[e] or t0 >= hi[e]:
+                items.append(None)
+                continue
+            items.append(describe(e, t0, min(hi[e], t0 + chunk)))
+            continue
+        e = q - n_items
+        if e not in lo:
+            items.append((e, 0, 0, 0, 1, -1))
+        elif lo[e] % chunk == 0:
+            items.append(None)
+        else:
+            items.append(describe(e, lo[e], min(hi[e], (lo[e] // chunk + 1) * chunk)))
+    return items
 
 
 # Arrival counters of the kernels' in-launch combines (K3 and K5 here, K7's
@@ -449,11 +525,12 @@ def _counters(dev: torch.device, stream: int, need: int) -> torch.Tensor:
     return counters
 
 
-def _dw_workspace(dev: torch.device, stream: int, m_pad: int, k_pad: int, n_pad: int):
+def _dw_workspace(dev: torch.device, stream: int, m_pad: int, k_pad: int, n_pad: int,
+                  chunk: int):
     """Scratch (torch.empty) and zeroed counters for one K3 or K5 call on
-    ``stream``, and the slot count; the counters cover both dtypes' output
-    blocks (64 x 64 in float32)."""
-    _, slots = dw_split(m_pad // TM, 0, DW_CHUNK)
+    ``stream`` with chunks of ``chunk`` tiles, and the slot count; the
+    counters cover both dtypes' output blocks (64 x 64 in float32)."""
+    _, slots = dw_split(m_pad // TM, 0, chunk)
     scratch = torch.empty(slots * k_pad * n_pad, dtype=torch.float32, device=dev)
     return scratch, _counters(dev, stream, slots * (k_pad // 64) * (n_pad // 64)), slots
 
@@ -464,8 +541,8 @@ def _dw_workspace(dev: torch.device, stream: int, m_pad: int, k_pad: int, n_pad:
 
 def dw_streamed_plain(x: torch.Tensor, g: torch.Tensor, row_src: torch.Tensor,
                       tile_expert: torch.Tensor, n_experts: int, *,
-                      stream_x: bool,
-                      gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      stream_x: bool, gate: Optional[torch.Tensor] = None,
+                      chunk: Optional[int] = None) -> torch.Tensor:
     """Plain version of ``dw_streamed``: both operands laid out tile by tile
     (slack rows zero in both), the gated rows rounded back to their dtype,
     per-tile A^T B in float32 summed per expert."""
@@ -487,9 +564,11 @@ def dw_streamed_plain(x: torch.Tensor, g: torch.Tensor, row_src: torch.Tensor,
 
 def dw_streamed(x: torch.Tensor, g: torch.Tensor, row_src: torch.Tensor,
                 tile_expert: torch.Tensor, n_experts: int, *, stream_x: bool,
-                gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+                gate: Optional[torch.Tensor] = None,
+                chunk: Optional[int] = None) -> torch.Tensor:
     """dW (E, K_pad, N_pad) float32, every expert's block written (zeros for
-    an expert with no rows).
+    an expert with no rows); ``chunk`` the split's, or None for
+    ``dw_chunk``'s.
 
     stream_x=True:  x (N, K_pad) unsorted, read through row_src; g (M_pad,
                     N_pad) tile-aligned (dW1, dW1g).
@@ -518,14 +597,17 @@ def dw_streamed(x: torch.Tensor, g: torch.Tensor, row_src: torch.Tensor,
         raise ValueError("dw_streamed: row_src and tile_expert must be int32")
     out = torch.empty((n_experts, k_pad, n_pad), dtype=torch.float32,
                       device=x.device)
+    chunk = chunk or dw_chunk("dw_streamed", m_pad, n_experts, k_pad, n_pad,
+                              x.element_size(), stream_x=stream_x, gated=gate is not None,
+                              device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    scratch, counters, slots = _dw_workspace(x.device, stream, m_pad, k_pad, n_pad)
+    scratch, counters, slots = _dw_workspace(x.device, stream, m_pad, k_pad, n_pad, chunk)
     fn = _fn("dw_streamed", "repro_dw_streamed", [_C] * 8 + [_I] * 9 + [_C])
     rc = fn(x.data_ptr(), g.data_ptr(), row_src.data_ptr(),
             tile_expert.data_ptr(), None if gate is None else gate.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
             (x if stream_x else g).shape[0], m_pad, k_pad, n_pad, n_experts,
-            int(stream_x), _DTYPE_CODE[x.dtype], DW_CHUNK, slots, stream)
+            int(stream_x), _DTYPE_CODE[x.dtype], chunk, slots, stream)
     _launch_status("dw_streamed", rc)
     LAUNCHES["dw_streamed"] += 1
     return out
@@ -536,7 +618,8 @@ def dw_streamed(x: torch.Tensor, g: torch.Tensor, row_src: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def cvmm_dw_plain(x_pad: torch.Tensor, tile_expert: torch.Tensor,
-                  g_pad: torch.Tensor, n_experts: int) -> torch.Tensor:
+                  g_pad: torch.Tensor, n_experts: int, *,
+                  chunk: Optional[int] = None) -> torch.Tensor:
     """Plain version of ``cvmm_dw``: per-tile x^T g in float32 summed per
     expert; zeros for an expert with no tiles."""
     prod = torch.bmm(_tiles(x_pad).transpose(1, 2), _tiles(g_pad))
@@ -546,11 +629,12 @@ def cvmm_dw_plain(x_pad: torch.Tensor, tile_expert: torch.Tensor,
 
 
 def cvmm_dw(x_pad: torch.Tensor, tile_expert: torch.Tensor,
-            g_pad: torch.Tensor, n_experts: int) -> torch.Tensor:
+            g_pad: torch.Tensor, n_experts: int, *,
+            chunk: Optional[int] = None) -> torch.Tensor:
     """x_pad (M_pad, K_pad) and g_pad (M_pad, N_pad) tile-aligned, slack rows
-    zero, in one dtype; tile_expert (M_pad//TM,) int32, non-decreasing.
-    Returns dW (E, K_pad, N_pad) float32, every expert's block written
-    (zeros for an expert with no rows)."""
+    zero, in one dtype; tile_expert (M_pad//TM,) int32, non-decreasing;
+    ``chunk`` as for ``dw_streamed``. Returns dW (E, K_pad, N_pad) float32,
+    every expert's block written (zeros for an expert with no rows)."""
     m_pad, k_pad = x_pad.shape
     n_pad = g_pad.shape[1]
     if (m_pad % TM or k_pad % LANE or n_pad % LANE or g_pad.shape[0] != m_pad
@@ -568,12 +652,15 @@ def cvmm_dw(x_pad: torch.Tensor, tile_expert: torch.Tensor,
         raise ValueError("cvmm_dw: tile_expert must be int32")
     out = torch.empty((n_experts, k_pad, n_pad), dtype=torch.float32,
                       device=x_pad.device)
+    chunk = chunk or dw_chunk("cvmm_dw", m_pad, n_experts, k_pad, n_pad,
+                              x_pad.element_size(), device=x_pad.device)
     stream = torch.cuda.current_stream(x_pad.device).cuda_stream
-    scratch, counters, slots = _dw_workspace(x_pad.device, stream, m_pad, k_pad, n_pad)
+    scratch, counters, slots = _dw_workspace(x_pad.device, stream, m_pad, k_pad, n_pad,
+                                             chunk)
     fn = _fn("cvmm_dw", "repro_cvmm_dw", [_C] * 6 + [_I] * 7 + [_C])
     rc = fn(x_pad.data_ptr(), tile_expert.data_ptr(), g_pad.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), counters.data_ptr(), m_pad,
-            k_pad, n_pad, n_experts, _DTYPE_CODE[x_pad.dtype], DW_CHUNK, slots,
+            k_pad, n_pad, n_experts, _DTYPE_CODE[x_pad.dtype], chunk, slots,
             stream)
     _launch_status("cvmm_dw", rc)
     LAUNCHES["cvmm_dw"] += 1

@@ -24,7 +24,8 @@ would average V over such a row. No caller makes one: with
 In bf16 the kernel packs the ``H // KV`` query heads of a KV head into
 128-row tiles of (position, head) rows and may split each tile's keys over
 several blocks, merged in the same launch; ``flash_schedule`` sizes the
-grid (csrc/flash_attention.cu describes the design).
+grid (csrc/flash_attention.cu describes the design), with the split count
+from ``kernels/autotune.py``.
 
 As for the kernels of ``kernels/cvmm.py``, the plain version
 ``flash_attention_plain`` runs for CPU tensors and only for them; a CUDA
@@ -86,30 +87,37 @@ def flash_packed_rows(rt: int, sq: int, grp: int) -> Tuple[List[int], List[int]]
 
 
 def flash_schedule(b: int, sq: int, h: int, kvh: int, sk: int, q_offset: int, causal: bool,
-                   n_sms: int, bk: int = FLASH_BK[64]) -> Tuple[int, int, int, int]:
-    """(row tile, items, splits, grid) of one bf16 K7 call on a card of
-    ``n_sms`` SMs: the most splits with items x splits at most one block an
-    SM, and no more than the longest item's tiles // MIN_TILES (at least
-    one). Reads no device value: ``kv_len`` is left to the kernel."""
+                   n_sms: int, bk: int = FLASH_BK[64], *, d: int = 64, device=None,
+                   splits: Optional[int] = None) -> Tuple[int, int, int, int]:
+    """(row tile, items, splits, grid) of one bf16 K7 call at head size
+    ``d`` on a card of ``n_sms`` SMs. ``splits`` if given, else the tuner's
+    ``flash`` decision, by default the most splits with items x splits at
+    most one block an SM, and no more than the longest item's tiles //
+    MIN_TILES (at least one). Reads no device value: ``kv_len`` is left to
+    the kernel."""
     grp = h // kvh
-    n_rt = -(-sq * grp // ROW_TILE)
-    items = b * kvh * n_rt
-    longest = flash_item_tiles(n_rt - 1, sq, sk, grp, causal, q_offset, bk)  # the last tile's
-    splits = max(1, min(longest // MIN_TILES, n_sms // items))
+    items = b * kvh * -(-sq * grp // ROW_TILE)
+    if splits is None:
+        from . import autotune
+        splits = autotune.decide("flash", {
+            "b": b, "sq": sq, "h": h, "kvh": kvh, "sk": sk, "q_offset": q_offset,
+            "causal": causal, "d": d, "bk": bk, "sms": n_sms},
+            device=device).tiles["splits"]
     return ROW_TILE, items, splits, items * splits
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool, scale: float, q_offset=0,
                           kv_len: Optional[torch.Tensor] = None, window: int = 0,
-                          kv_chunk: int = 2048) -> torch.Tensor:
+                          kv_chunk: int = 2048, splits: Optional[int] = None) -> torch.Tensor:
     """Plain version of ``flash_attention``, and the chunked core that
     training and windowed layers run: a loop over ``kv_chunk``-key chunks
     carrying the online-softmax state in float32, so (Sq, Sk) is never
     materialized; -inf masks (a row with no visible key gives zeros), rows
     divided by max(l, 1e-20), rounded to q's dtype once. ``q_offset`` is an
     int or a 0-d tensor; ``window`` > 0 also masks keys at or before
-    ``q_offset + i - window`` (K7 has no window)."""
+    ``q_offset + i - window`` (K7 has no window). ``splits``, K7's
+    schedule, has no use here."""
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     dev = q.device
@@ -146,10 +154,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, scale: float, q_offset: int = 0,
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kv_len: Optional[torch.Tensor] = None,
+                    splits: Optional[int] = None) -> torch.Tensor:
     """q (B, Sq, H, D), k and v (B, Sk, KV, D) in one dtype (float32 or
     bfloat16), H % KV == 0; ``q_offset`` a Python int; ``kv_len`` (B,)
-    int64 or None. Returns (B, Sq, H, D) in q's dtype."""
+    int64 or None; ``splits`` (bf16) the key splits an item, or None for
+    ``flash_schedule``'s. Returns (B, Sq, H, D) in q's dtype."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} must be (B, S, heads, D)")
@@ -178,11 +188,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: kv_len must be int64")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    bk, splits, scratch, counters = 0, 1, None, None
-    if q.dtype == torch.bfloat16:
+    bk, scratch, counters = 0, None, None
+    if q.dtype != torch.bfloat16:
+        splits = 1                  # the float32 body does not split
+    else:
         bk = FLASH_BK[d]
         _, items, splits, grid = flash_schedule(b, sq, h, kvh, sk, q_offset, causal,
-                                                _sm_count(q.device), bk)
+                                                _sm_count(q.device), bk, d=d,
+                                                device=q.device, splits=splits)
         if splits > 1:
             scratch = torch.empty(grid * (d // 2 + 4) * SCRATCH_THREADS,
                                   dtype=torch.float32, device=q.device)

@@ -41,9 +41,25 @@ Entry points
 ``moe_mlp_decode``         serving's decode-shaped MoE MLP on a cached,
                             routing-free ``DecodePlan`` (K6 gather, then K4
                             three times; forward only).
+``assemble_decode_plan``   the full ``CvmmPlan`` a skeleton and one routing
+                            imply, for the plan checker (the hot path stays
+                            on the skeleton).
+``plan_dma_stats``         a plan's row counts, optionally checked by
+                            ``analysis.plans``.
+
+Tile decisions
+--------------
+Each call resolves its kernels' launch schedules once, through the tuner
+(``kernels/autotune.py``), and threads them into every launch of the call,
+forward and backward: ``FusedTiles`` for the fused rung, ``PlannedTiles``
+for each unfused grouped GEMM, and a ``DecodePlan``'s widths, decided when
+the skeleton is built. ``SortKernelPlan`` carries the rung with its tiles.
+A schedule depends on M_pad (the grid must fill the card), so the tiles are
+resolved for a call's plan, not once per shape class as in the reference.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -51,6 +67,8 @@ import torch
 import torch.nn.functional as F
 
 from ..common import act_fn, round_up
+from ..roofline.analysis import hardware_for
+from . import autotune
 from . import cvmm as K
 from . import ref as refk
 from .cvmm import LANE, TM
@@ -117,7 +135,7 @@ def _tile_layout(group_sizes: torch.Tensor, m: int,
     rows = torch.arange(m, dtype=torch.int64, device=dev)
     re = refk.row_experts(gs, m)
     new_pos = offs_p[re] + (rows - offs[re])
-    m_pad = round_up(m, TM) + e * TM
+    m_pad = plan_m_pad(m, e)
     n_tiles = m_pad // TM
     ends_p = torch.cumsum(ps, 0)
     tile_expert = torch.searchsorted(
@@ -125,6 +143,11 @@ def _tile_layout(group_sizes: torch.Tensor, m: int,
         right=True)
     tile_expert = torch.clamp(tile_expert, max=e - 1).to(torch.int32)
     return new_pos, tile_expert, m_pad
+
+
+def plan_m_pad(n_rows: int, n_experts: int) -> int:
+    """The static M_pad of ``_tile_layout`` for ``n_rows`` routed rows."""
+    return round_up(n_rows, TM) + n_experts * TM
 
 
 @dataclass(frozen=True)
@@ -172,20 +195,118 @@ def make_moe_plan(idx: torch.Tensor, n_experts: int,
                     gate_tiles=gate_tiles)
 
 
+# ---------------------------------------------------------------------------
+# Tile decisions (one resolution per call, threaded into every launch)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FusedTiles:
+    """The launch schedules of one fused MoE-MLP call, forward and backward
+    (the reference's ``FusedTiles``: item widths where it has tile widths,
+    K3's chunks where it has dW tiles and pipeline depths)."""
+    w1_bn: int        # K1 forward, inference (one output)
+    w1_train_bn: int  # K1 forward under grad (saves the pre-activations)
+    t0_bn: int        # K1 backward, t0 = gather(dy) @ w2^T
+    w2_bn: int        # K2 forward
+    dx_bn: int        # K4 dX = dh @ w1^T (and dhg @ w1g^T)
+    dw1_chunk: int    # K3 dW1 (and dW1g): K d_model, N expert_size
+    dw2_chunk: int    # K3 dW2: K expert_size, N d_model
+    provenance: str   # "heuristic" | "tuned" (any decision tuned)
+
+
+@dataclass(frozen=True)
+class PlannedTiles:
+    """The launch schedules of one unfused grouped GEMM, forward and
+    backward (the reference's ``PlannedTiles``)."""
+    fwd_bn: int       # K4 x @ w
+    dx_bn: int        # K4 g @ w^T
+    dw_chunk: int     # K5 dW = x^T g
+    provenance: str
+
+
+def _merge_prov(*decisions) -> str:
+    return ("tuned" if any(d.provenance == "tuned" for d in decisions)
+            else "heuristic")
+
+
+def _sms(device: torch.device) -> int:
+    """The SM count a schedule is made for: the card's, or the hardware
+    model's for the CPU (whose plain versions take no schedule)."""
+    return K._sm_count(device) if device.type == "cuda" else hardware_for(device).n_sms
+
+
+def _decide_bn(kernel: str, m_pad: int, n_experts: int, k_pad: int, n_pad: int, b: int,
+               dev, glu: bool = False, save: bool = False) -> autotune.TileDecision:
+    return autotune.decide("row_gemm", {
+        "kernel": kernel, "m_pad": m_pad, "k_pad": k_pad, "n_pad": n_pad, "glu": glu,
+        "save": save, "n_experts": n_experts, "b": b, "sms": _sms(dev)}, device=dev)
+
+
+def _decide_chunk(kernel: str, m_pad: int, n_experts: int, k_pad: int, n_pad: int, b: int,
+                  dev, stream_x: bool = False, gated: bool = False) -> autotune.TileDecision:
+    return autotune.decide("dw_split", {
+        "kernel": kernel, "m_pad": m_pad, "n_experts": n_experts, "k_pad": k_pad,
+        "n_pad": n_pad, "b": b, "stream_x": int(stream_x), "gated": int(gated)}, device=dev)
+
+
+def fused_mlp_tiles(m_pad: int, d_model: int, expert_size: int, n_experts: int,
+                    dtype=torch.float32, glu: bool = False,
+                    device="cuda") -> Optional[FusedTiles]:
+    """Every schedule the fused rung launches for a plan of ``m_pad`` rows
+    (forward and backward), or None when some launch has no legal one."""
+    d_pad, g_pad = round_up(d_model, LANE), round_up(expert_size, LANE)
+    b, dev = dtype.itemsize, torch.device(device)
+    e = n_experts
+    picks = [_decide_bn("fused_w1", m_pad, e, d_pad, g_pad, b, dev, glu=glu),
+             _decide_bn("fused_w1", m_pad, e, d_pad, g_pad, b, dev, glu=glu, save=True),
+             _decide_bn("fused_w1", m_pad, e, d_pad, g_pad, b, dev),
+             _decide_bn("fused_w2", m_pad, e, g_pad, d_pad, b, dev),
+             _decide_bn("cvmm", m_pad, e, g_pad, d_pad, b, dev),
+             _decide_chunk("dw_streamed", m_pad, n_experts, d_pad, g_pad, b, dev,
+                           stream_x=True),
+             _decide_chunk("dw_streamed", m_pad, n_experts, g_pad, d_pad, b, dev,
+                           gated=True)]
+    if any(d.tiles is None for d in picks):
+        return None
+    w1, w1t, t0, w2, dx, dw1, dw2 = (d.tiles for d in picks)
+    return FusedTiles(w1_bn=w1["bn"], w1_train_bn=w1t["bn"], t0_bn=t0["bn"],
+                      w2_bn=w2["bn"], dx_bn=dx["bn"], dw1_chunk=dw1["chunk"],
+                      dw2_chunk=dw2["chunk"], provenance=_merge_prov(*picks))
+
+
+def planned_call_tiles(m_pad: int, k_dim: int, n_dim: int, n_experts: int,
+                       dtype=torch.float32, device="cuda") -> Optional[PlannedTiles]:
+    """The three schedules one unfused grouped GEMM of (K, N) = (``k_dim``,
+    ``n_dim``) launches on a plan of ``m_pad`` rows (forward, dX, dW), or
+    None when one has no legal schedule."""
+    k_pad, n_pad = round_up(k_dim, LANE), round_up(n_dim, LANE)
+    b, dev = dtype.itemsize, torch.device(device)
+    picks = [_decide_bn("cvmm", m_pad, n_experts, k_pad, n_pad, b, dev),
+             _decide_bn("cvmm", m_pad, n_experts, n_pad, k_pad, b, dev),
+             _decide_chunk("cvmm_dw", m_pad, n_experts, k_pad, n_pad, b, dev)]
+    if any(d.tiles is None for d in picks):
+        return None
+    fwd, dx, dw = (d.tiles for d in picks)
+    return PlannedTiles(fwd_bn=fwd["bn"], dx_bn=dx["bn"], dw_chunk=dw["chunk"],
+                        provenance=_merge_prov(*picks))
+
+
 class _CvmmPlanned(torch.autograd.Function):
     """The reference's ``_cvmm_planned`` custom_vjp (``kernels/ops.py``):
     forward scatters the sorted rows into the tile-aligned layout and runs
     K4; backward pads the cotangent the same way and runs K4 on a contiguous
-    w_pad^T for dX and K5 for dW. The residuals are the reference's: the
-    padded rows, the plan arrays and w, so backward recomputes no layout."""
+    w_pad^T for dX and K5 for dW, each at the call's ``PlannedTiles``. The
+    residuals are the reference's: the padded rows, the plan arrays and w,
+    so backward recomputes no layout."""
 
     @staticmethod
-    def forward(ctx, x, new_pos, tile_expert, group_sizes, w):
+    def forward(ctx, x, new_pos, tile_expert, group_sizes, w, tiles):
         m_pad = tile_expert.shape[0] * TM
         x_pad = x.new_zeros((m_pad, round_up(x.shape[1], LANE)))
         x_pad[new_pos] = _pad_lane(x, 1)
-        out_pad = K.cvmm(x_pad, tile_expert, _pad_w(w))
+        out_pad = K.cvmm(x_pad, tile_expert, _pad_w(w), bn=tiles.fwd_bn)
         ctx.save_for_backward(x_pad, new_pos, tile_expert, group_sizes, w)
+        ctx.tiles = tiles
         return out_pad[new_pos, :w.shape[2]]
 
     @staticmethod
@@ -195,19 +316,27 @@ class _CvmmPlanned(torch.autograd.Function):
         g_pad = g.new_zeros((x_pad.shape[0], round_up(n, LANE)))
         g_pad[new_pos] = _pad_lane(g, 1)
         w_t = _pad_w(w).transpose(1, 2).contiguous()
-        dx_pad = K.cvmm(g_pad, tile_expert, w_t)
+        dx_pad = K.cvmm(g_pad, tile_expert, w_t, bn=ctx.tiles.dx_bn)
         dx = dx_pad[new_pos, :k].to(x_pad.dtype)
-        dw = K.cvmm_dw(x_pad, tile_expert, g_pad, e)
+        dw = K.cvmm_dw(x_pad, tile_expert, g_pad, e, chunk=ctx.tiles.dw_chunk)
         dw = _mask_empty(dw, group_sizes)[:, :k, :n].to(w.dtype)
-        return dx, None, None, None, dw
+        return dx, None, None, None, dw, None
 
 
-def cvmm_planned(x: torch.Tensor, plan: CvmmPlan,
-                 w: torch.Tensor) -> torch.Tensor:
+def _planned(x, new_pos, tile_expert, group_sizes, w, tiles):
+    if tiles is None:
+        tiles = planned_call_tiles(tile_expert.shape[0] * TM, x.shape[1], w.shape[2],
+                                   w.shape[0], x.dtype, x.device)
+    return _CvmmPlanned.apply(x, new_pos, tile_expert, group_sizes, w, tiles)
+
+
+def cvmm_planned(x: torch.Tensor, plan: CvmmPlan, w: torch.Tensor,
+                 tiles: Optional[PlannedTiles] = None) -> torch.Tensor:
     """Grouped matmul on *sorted* rows reusing a precomputed plan (the three
-    calls of an MoE layer share one); differentiable in x and w."""
-    return _CvmmPlanned.apply(x, plan.new_pos, plan.tile_expert,
-                              plan.group_sizes, w.to(x.dtype))
+    calls of an MoE layer share one); differentiable in x and w. ``tiles``
+    (``planned_call_tiles``) is resolved here when not given."""
+    return _planned(x, plan.new_pos, plan.tile_expert, plan.group_sizes,
+                    w.to(x.dtype), tiles)
 
 
 def _ragged(x: torch.Tensor, group_sizes: torch.Tensor,
@@ -239,8 +368,8 @@ def cvmm(x: torch.Tensor, group_sizes: torch.Tensor, w: torch.Tensor,
                 "pallas_fused_interpret"):
         new_pos, tile_expert, _ = _tile_layout(group_sizes, x.shape[0],
                                                w.shape[0])
-        return _CvmmPlanned.apply(x, new_pos, tile_expert,
-                                  group_sizes.to(torch.int32), w.to(x.dtype))
+        return _planned(x, new_pos, tile_expert, group_sizes.to(torch.int32),
+                        w.to(x.dtype), None)
     raise ValueError(f"unknown cvmm impl {impl}")
 
 
@@ -250,11 +379,31 @@ def cvmm(x: torch.Tensor, group_sizes: torch.Tensor, w: torch.Tensor,
 
 @dataclass(frozen=True)
 class SortKernelPlan:
-    """The sort path's execution decision for one shape class: "pallas_fused",
-    "pallas" or "ragged". The reference's plan also carries the tiles of
-    every launch (``FusedTiles``/``PlannedTiles`` from its autotuner); the
-    port's kernels use fixed tiles, so only the rung is here."""
+    """The sort path's execution decision: the rung ("pallas_fused",
+    "pallas" or "ragged") and, when resolved for a plan's M_pad, the
+    schedules of every launch of it (the reference's fields)."""
     rung: str
+    fused: Optional[FusedTiles] = None          # rung "pallas_fused"
+    planned_w1: Optional[PlannedTiles] = None   # unfused w1/w1g (K d, N G)
+    planned_w2: Optional[PlannedTiles] = None   # unfused w2 (K G, N d)
+
+    @property
+    def tiles(self):
+        """The resolved schedules: ``FusedTiles``, the two ``PlannedTiles``
+        of the unfused rung, or None."""
+        if self.fused is not None:
+            return self.fused
+        if self.planned_w1 is not None:
+            return (self.planned_w1, self.planned_w2)
+        return None
+
+    @property
+    def provenance(self) -> str:
+        if self.fused is not None:
+            return self.fused.provenance
+        if self.planned_w1 is not None:
+            return _merge_prov(self.planned_w1, self.planned_w2)
+        return "none"
 
 
 def pallas_supported(d_model: int, expert_size: int,
@@ -262,13 +411,15 @@ def pallas_supported(d_model: int, expert_size: int,
     """Gate for the unfused kernel rung (K4 forward and dX, K5 dW).
 
     On the TPU the answer is whether every launch finds a tile that fits the
-    VMEM budget. Hopper has no such budget: the kernels stream fixed slices
-    of K and N through shared memory, so they take any width (d_model and
-    expert_size are lane-padded to multiples of 128) in float32 or bfloat16,
-    and nothing else. So the answer differs from the TPU's in two ways: a
-    width too large for VMEM runs the kernels here, and a dtype other than
-    float32 or bfloat16 (float16, say), which the TPU kernels take, goes to
-    the plain "ragged" rung here, which runs on the CPU only."""
+    VMEM budget. Here the kernels stream fixed slices of K and N through a
+    shared-memory ring whose size does not grow with the widths (every
+    instance fits the opt-in limit: ``analysis/smem.py``), so they take any
+    width (d_model and expert_size are lane-padded to multiples of 128) in
+    float32 or bfloat16, and nothing else. So the answer differs from the
+    TPU's in two ways: a width too large for VMEM runs the kernels here, and
+    a dtype other than float32 or bfloat16 (float16, say), which the TPU
+    kernels take, goes to the plain "ragged" rung here, which runs on the
+    CPU only."""
     del d_model, expert_size
     return dtype in (torch.float32, torch.bfloat16)
 
@@ -288,18 +439,36 @@ def fused_supported(n_tokens: int, d_model: int, expert_size: int,
 
 def plan_sort_kernels(impl: str, d_model: int, expert_size: int,
                       activation: str, dtype=torch.float32,
-                      glu: bool = False) -> SortKernelPlan:
+                      glu: bool = False, *, m_pad: Optional[int] = None,
+                      n_experts: Optional[int] = None,
+                      device=None) -> SortKernelPlan:
     """Resolve the sort path's rung in one place, as the reference does:
     a non-"pallas*" impl is "ragged"; "pallas*" degrades to "ragged" when
     the kernels do not take the shapes (``pallas_supported``); "pallas_fused*"
-    runs fused when ``fused_supported`` and else the unfused "pallas" rung."""
+    runs fused when ``fused_supported`` and else the unfused "pallas" rung.
+    Given a plan's ``m_pad``, its ``n_experts`` and the ``device``, the
+    rung's own schedules are resolved too (the reference also resolves the
+    unfused rung's for the fused one, which the port would only time for
+    nothing); a launch without a legal schedule degrades the rung as the
+    reference's missing tile does."""
     if not impl.startswith("pallas") or not pallas_supported(
             d_model, expert_size, dtype):
         return SortKernelPlan(rung="ragged")
+    resolve = m_pad is not None
     if impl.startswith("pallas_fused") and fused_supported(
             0, d_model, expert_size, activation, dtype, glu):
-        return SortKernelPlan(rung="pallas_fused")
-    return SortKernelPlan(rung="pallas")
+        if not resolve:
+            return SortKernelPlan(rung="pallas_fused")
+        ft = fused_mlp_tiles(m_pad, d_model, expert_size, n_experts, dtype, glu, device)
+        if ft is not None:
+            return SortKernelPlan(rung="pallas_fused", fused=ft)
+    if not resolve:
+        return SortKernelPlan(rung="pallas")
+    pw1 = planned_call_tiles(m_pad, d_model, expert_size, n_experts, dtype, device)
+    pw2 = planned_call_tiles(m_pad, expert_size, d_model, n_experts, dtype, device)
+    if pw1 is None or pw2 is None:
+        return SortKernelPlan(rung="ragged")
+    return SortKernelPlan(rung="pallas", planned_w1=pw1, planned_w2=pw2)
 
 
 # ---------------------------------------------------------------------------
@@ -320,35 +489,38 @@ class _MoeMlpFused(torch.autograd.Function):
     """The reference's ``_moe_mlp_fused`` custom_vjp (``kernels/ops.py``):
     forward K1 (with the pre-activations saved under grad) then K2; backward
     t0 = gather(dy) @ w2^T by K1, the activation's elementwise VJP and
-    dgate = sum(t0 * u) in plain torch, dW2 and dW1 (dW1g) by K3, dX by K4.
-    Weights arrive in x's dtype; each is padded once, in forward."""
+    dgate = sum(t0 * u) in plain torch, dW2 and dW1 (dW1g) by K3, dX by K4,
+    every launch at the call's ``FusedTiles``. Weights arrive in x's dtype;
+    each is padded once, in forward."""
 
     @staticmethod
     def forward(ctx, xf, gate, w1, w1g, w2, row_src, tile_expert, act,
-                save_preact):
+                save_preact, tiles):
         n, d = xf.shape
         xe = _pad_lane(xf, 1)
         w1p, w2p = _pad_w(w1), _pad_w(w2)
         w1gp = None if w1g is None else _pad_w(w1g)
         out = K.fused_w1(xe, row_src, tile_expert, w1p, w1gp, act=act,
-                         save_preact=save_preact)
+                         save_preact=save_preact,
+                         bn=tiles.w1_train_bn if save_preact else tiles.w1_bn)
         u_pad = out[0] if save_preact else out
-        y_pad = K.fused_w2(u_pad, tile_expert, w2p, gate)
+        y_pad = K.fused_w2(u_pad, tile_expert, w2p, gate, bn=tiles.w2_bn)
         if save_preact:
             ctx.save_for_backward(xe, gate, w1p, w1gp, w2p, row_src,
                                   tile_expert, *out[1:])
-            ctx.act, ctx.shape = act, (n, d, w1.shape[2])
+            ctx.act, ctx.shape, ctx.tiles = act, (n, d, w1.shape[2]), tiles
         return _scatter_rows(y_pad, row_src, n, d, xf.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         xe, gate, w1p, w1gp, w2p, row_src, te, h, *hg = ctx.saved_tensors
         n, d, gsz = ctx.shape
+        tiles = ctx.tiles
         e = w1p.shape[0]
         act = act_fn(ctx.act)
         dy_e = _pad_lane(dy.to(xe.dtype).contiguous(), 1)
         t0 = K.fused_w1(dy_e, row_src, te, w2p.transpose(1, 2).contiguous(),
-                        None, act="identity")
+                        None, act="identity", bn=tiles.t0_bn)
         with torch.enable_grad():              # the activation's VJP
             hv = h.detach().requires_grad_()
             ins = [hv]
@@ -361,23 +533,25 @@ class _MoeMlpFused(torch.autograd.Function):
         du = (t0.float() * gate[:, None]).to(u.dtype)
         dh, *dhg = torch.autograd.grad(u, ins, du)
         dw2 = K.dw_streamed(u.detach(), dy_e, row_src, te, e, stream_x=False,
-                            gate=gate)[:, :gsz, :d]
-        dw1 = K.dw_streamed(xe, dh, row_src, te, e, stream_x=True)[:, :d, :gsz]
-        dx_pad = K.cvmm(dh, te, w1p.transpose(1, 2).contiguous())
+                            gate=gate, chunk=tiles.dw2_chunk)[:, :gsz, :d]
+        dw1 = K.dw_streamed(xe, dh, row_src, te, e, stream_x=True,
+                            chunk=tiles.dw1_chunk)[:, :d, :gsz]
+        dx_pad = K.cvmm(dh, te, w1p.transpose(1, 2).contiguous(), bn=tiles.dx_bn)
         dw1g = None
         if dhg:
-            dw1g = K.dw_streamed(xe, dhg[0], row_src, te, e,
-                                 stream_x=True)[:, :d, :gsz].to(xe.dtype)
-            dx_pad = dx_pad + K.cvmm(dhg[0], te,
-                                     w1gp.transpose(1, 2).contiguous())
+            dw1g = K.dw_streamed(xe, dhg[0], row_src, te, e, stream_x=True,
+                                 chunk=tiles.dw1_chunk)[:, :d, :gsz].to(xe.dtype)
+            dx_pad = dx_pad + K.cvmm(dhg[0], te, w1gp.transpose(1, 2).contiguous(),
+                                     bn=tiles.dx_bn)
         dx = _scatter_rows(dx_pad, row_src, n, d, xe.dtype)
         return (dx, dgate, dw1.to(xe.dtype), dw1g, dw2.to(xe.dtype),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def moe_mlp_fused(xf: torch.Tensor, plan: CvmmPlan, w1: torch.Tensor,
                   w2: torch.Tensor, w1g: Optional[torch.Tensor] = None, *,
-                  activation: str = "relu") -> torch.Tensor:
+                  activation: str = "relu",
+                  tiles: Optional[FusedTiles] = None) -> torch.Tensor:
     """Fused dropless expert MLP:
     y[t] = sum_k gate * (act(x[t] @ w1[e]) [* x[t] @ w1g[e]]) @ w2[e].
 
@@ -385,7 +559,8 @@ def moe_mlp_fused(xf: torch.Tensor, plan: CvmmPlan, w1: torch.Tensor,
     multiply run inside the K1 and K2 launches; returns (N, d) with the
     per-(token, expert) rows summed back per token. Differentiable in xf,
     the weights and the plan's ``gate_tiles``. Weights are cast to xf's
-    dtype here, as the reference does."""
+    dtype here, as the reference does. ``tiles`` (``fused_mlp_tiles``) is
+    resolved here when not given."""
     if activation not in FUSIBLE_ACTIVATIONS:
         raise ValueError(f"activation {activation!r} is not tile-local; "
                          f"fusible: {FUSIBLE_ACTIVATIONS}")
@@ -397,8 +572,14 @@ def moe_mlp_fused(xf: torch.Tensor, plan: CvmmPlan, w1: torch.Tensor,
     gate = plan.gate_tiles.reshape(-1)
     save = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (xf, gate) + ws)
+    if tiles is None:
+        tiles = fused_mlp_tiles(plan.m_pad, xf.shape[1], w1.shape[2], w1.shape[0], dt,
+                                w1g is not None, xf.device)
+        if tiles is None:
+            raise ValueError("moe_mlp_fused: a launch has no schedule within the "
+                             "shared-memory budget")
     return _MoeMlpFused.apply(xf, gate, *ws, plan.row_src, plan.tile_expert,
-                              activation, save)
+                              activation, save, tiles)
 
 
 # ---------------------------------------------------------------------------
@@ -602,12 +783,12 @@ def gathered_weighted_sum_dedup(values: torch.Tensor, plan: DedupGatherPlan,
     return y[:, :d]
 
 
-def dedup_gather_rows(values: torch.Tensor,
-                      plan: DedupGatherPlan) -> torch.Tensor:
+def dedup_gather_rows(values: torch.Tensor, plan: DedupGatherPlan, *,
+                      schedule: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Per-selection rows through a dedup plan: rows[s] = V[idx[s]], lane-
-    padded. One K6 pass covers the compacted union; ``sel_pos`` expands it
-    back to selection order."""
-    rows = K.gather_rows(_pad_lane(values, 1), plan.row_src)
+    padded. One K6 pass (at ``schedule``, or the tuner's) covers the
+    compacted union; ``sel_pos`` expands it back to selection order."""
+    rows = K.gather_rows(_pad_lane(values, 1), plan.row_src, schedule=schedule)
     return rows[plan.sel_pos]
 
 
@@ -624,33 +805,59 @@ class DecodePlan:
     ``tile_expert`` is the static ``repeat(arange(e), cap//TM)``. ``gather``
     is the dedup plan over token rows (row_src == arange(n_tokens)).
 
-    The reference also carries tuned tile widths (``w1_tn``/``w2_tn``,
-    ``gather_nb``) from its autotuner. The port has no autotuner yet: its K4
-    kernel uses one fixed 128 x 128 output tile and K6 one 128-row tile, so
-    those fields are left out."""
+    Built for the expert widths, the skeleton also carries the schedules
+    of its launches, decided once by the tuner when it is built (the
+    reference's ``w1_tn``, ``w2_tn`` and ``gather_nb``): K4's item width for
+    w1 (and w1g) and for w2, and K6's (rows a block, vectors a lane). A
+    skeleton built without widths leaves them None, and each launch
+    decides its own (the same in the default, heuristic mode)."""
     n_tokens: int
     k: int
     n_experts: int
     cap: int                      # per-expert slot capacity (TM multiple)
     tile_expert: torch.Tensor     # (n_experts * cap // TM,) int32
     gather: DedupGatherPlan       # token-row dedup gather
+    d_model: Optional[int] = None
+    expert_size: Optional[int] = None
+    w1_bn: Optional[int] = None   # K4 item widths: w1 (d -> G), w2 (G -> d)
+    w2_bn: Optional[int] = None
+    gather_schedule: Optional[Tuple[int, int]] = None   # K6 (rows, vectors a lane)
+    provenance: str = "none"      # "heuristic" | "tuned" | "none" (no widths)
 
     @property
     def m_pad(self) -> int:
         return self.n_experts * self.cap
 
 
-def make_decode_plan(n_tokens: int, k: int, n_experts: int, *,
-                     device="cuda") -> DecodePlan:
-    """Build the routing-free decode skeleton for one shape class."""
+def make_decode_plan(n_tokens: int, k: int, n_experts: int,
+                     d_model: Optional[int] = None, expert_size: Optional[int] = None,
+                     dtype=torch.bfloat16, *, device="cuda") -> DecodePlan:
+    """Build the routing-free decode skeleton for one shape class, with its
+    launches' schedules when ``d_model`` and ``expert_size`` are given."""
     cap = round_up(n_tokens * k, TM)
     tile_expert = torch.arange(n_experts, dtype=torch.int32,
                                device=device).repeat_interleave(cap // TM)
     tok = torch.arange(n_tokens, device=device)[:, None].expand(n_tokens, k)
     gather = make_dedup_gather_plan(
         tok, torch.ones((n_tokens, k), device=device), n_tokens)
-    return DecodePlan(n_tokens=n_tokens, k=k, n_experts=n_experts, cap=cap,
+    plan = DecodePlan(n_tokens=n_tokens, k=k, n_experts=n_experts, cap=cap,
                       tile_expert=tile_expert, gather=gather)
+    if d_model is None or expert_size is None:
+        return plan
+    dev, b = torch.device(device), dtype.itemsize
+    d_pad, g_pad = round_up(d_model, LANE), round_up(expert_size, LANE)
+    m_pad = n_experts * cap
+    w1 = _decide_bn("cvmm", m_pad, n_experts, d_pad, g_pad, b, dev)
+    w2 = _decide_bn("cvmm", m_pad, n_experts, g_pad, d_pad, b, dev)
+    gr = autotune.decide("gather_rows", {"m_pad": gather.u_pad, "row_bytes": d_pad * b,
+                                         "sms": _sms(dev)}, device=dev)
+    if any(d.tiles is None for d in (w1, w2, gr)):
+        raise ValueError(f"make_decode_plan: no schedule within the shared-memory "
+                         f"budget for d_model {d_model}, expert_size {expert_size}")
+    return dataclasses.replace(
+        plan, d_model=d_model, expert_size=expert_size, w1_bn=w1.tiles["bn"],
+        w2_bn=w2.tiles["bn"], gather_schedule=(gr.tiles["rows"], gr.tiles["vpl"]),
+        provenance=_merge_prov(w1, w2, gr))
 
 
 def decode_slots(plan: DecodePlan, idx: torch.Tensor) -> torch.Tensor:
@@ -680,17 +887,65 @@ def moe_mlp_decode(xf: torch.Tensor, idx: torch.Tensor, gates: torch.Tensor,
     if n != plan.n_tokens or idx.shape != (n, plan.k):
         raise ValueError(f"moe_mlp_decode: plan for {plan.n_tokens}x{plan.k}"
                          f" routing, got {tuple(idx.shape)}")
+    if plan.d_model is not None and (plan.d_model, plan.expert_size) != (d, w1.shape[2]):
+        raise ValueError(f"moe_mlp_decode: plan for widths {plan.d_model} and "
+                         f"{plan.expert_size}, got {d} and {w1.shape[2]}")
     d_pad = round_up(d, LANE)
-    x_rows = dedup_gather_rows(xf, plan.gather)                # (n*k, d_pad)
+    x_rows = dedup_gather_rows(xf, plan.gather,
+                               schedule=plan.gather_schedule)  # (n*k, d_pad)
     slot = decode_slots(plan, idx)
     x_pad = xf.new_zeros((plan.m_pad, d_pad))
     x_pad[slot] = x_rows
-    h = K.cvmm(x_pad, plan.tile_expert, _pad_w(w1.to(xf.dtype)))
+    h = K.cvmm(x_pad, plan.tile_expert, _pad_w(w1.to(xf.dtype)), bn=plan.w1_bn)
     u = act_fn(activation)(h)
     if w1g is not None:
-        u = u * K.cvmm(x_pad, plan.tile_expert, _pad_w(w1g.to(xf.dtype)))
-    y_pad = K.cvmm(u, plan.tile_expert, _pad_w(w2.to(xf.dtype)))
+        u = u * K.cvmm(x_pad, plan.tile_expert, _pad_w(w1g.to(xf.dtype)),
+                       bn=plan.w1_bn)
+    y_pad = K.cvmm(u, plan.tile_expert, _pad_w(w2.to(xf.dtype)), bn=plan.w2_bn)
     rows = y_pad[slot].float() * gates.reshape(-1, 1).float()  # (n*k, d_pad)
     y = torch.zeros((n, d_pad), dtype=torch.float32, device=xf.device)
     y.index_add_(0, plan.gather.tok_src, rows)
     return y[:, :d].to(xf.dtype)
+
+
+def assemble_decode_plan(plan: DecodePlan, idx: torch.Tensor,
+                         gates: torch.Tensor) -> CvmmPlan:
+    """The full ``CvmmPlan`` that the skeleton and one routing imply (the
+    reference's second level). ``moe_mlp_decode`` never needs it; the plan
+    checker (``analysis/plans.py``) holds the decode layout to the same
+    invariants as every other plan through it. Slots follow
+    ``decode_slots``; ``tile_expert`` is the skeleton's."""
+    k = idx.shape[-1]
+    dev = plan.tile_expert.device
+    e_flat = idx.reshape(-1).to(torch.int64)
+    tok = torch.arange(plan.n_tokens, dtype=torch.int32, device=dev).repeat_interleave(k)
+    perm = torch.argsort(e_flat, stable=True)
+    group_sizes = torch.bincount(e_flat, minlength=plan.n_experts).to(torch.int32)
+    new_pos = decode_slots(plan, idx)[perm]
+    row_src = torch.full((plan.m_pad,), plan.n_tokens, dtype=torch.int32, device=dev)
+    row_src[new_pos] = tok[perm]
+    gate_pad = torch.zeros((plan.m_pad,), dtype=torch.float32, device=dev)
+    gate_pad[new_pos] = gates.reshape(-1)[perm].float()
+    return CvmmPlan(perm=perm, group_sizes=group_sizes, new_pos=new_pos,
+                    row_src=row_src, tile_expert=plan.tile_expert,
+                    gate_tiles=gate_pad.reshape(plan.m_pad // TM, TM))
+
+
+def plan_dma_stats(plan, n_rows: int, *, verify: bool = False) -> dict:
+    """A plan's row counts (the reference's telemetry, as far as the port's
+    plans carry it): ``per_row``, the slots that read a row (for a
+    ``DedupGatherPlan`` the selections before the dedup), and for a dedup
+    plan ``unique_rows``, the rows it reads. The port's plans carry no DMA
+    chunk table, so there is no ``chunk_hist`` or ``run_batched``.
+    ``verify=True`` first runs the plan through ``analysis.plans`` and
+    raises ValueError on any violation."""
+    if verify:
+        from ..analysis.plans import verify_plan
+        findings = verify_plan(plan, n_rows)
+        if findings:
+            raise ValueError("plan invariant violations:\n" + "\n".join(
+                f"  [{f.check}] {f.detail}" for f in findings))
+    real = int((plan.row_src < n_rows).sum())
+    if isinstance(plan, DedupGatherPlan):
+        return {"per_row": int(plan.sel_pos.shape[0]), "unique_rows": real}
+    return {"per_row": real}

@@ -97,4 +97,5 @@ def test_allocator_capture_sizes_and_plan_cache():
     p1 = cache.skeleton(4, 2, 4, "cpu")
     assert cache.skeleton(4, 2, 4, "cpu") is p1
     cache.skeleton(8, 2, 4, "cpu")
-    assert cache.counters() == {"rebuilds": 2, "hits": 1}
+    assert cache.counters() == {"rebuilds": 2, "hits": 1, "assembles": 0,
+                                "assembled_hits": 0}
