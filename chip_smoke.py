@@ -12,7 +12,8 @@ baselines (Switch, S-BASE, noisy top-k), the capacity dispatch and the
 trainer's gradient accumulation, compression and remat, L-N the reference's
 other architectures (Mamba2, zamba2's hybrid, whisper, pixtral and the
 llama-likes) served from the contiguous cache, with K7 at head size 112, O
-the tile layer (shared memory, the autotuner's tuned mode):
+the tile layer (shared memory, the autotuner's tuned mode), P expert
+parallelism on a one-rank NCCL mesh:
 
 1. the card: torch's device name and nvidia-smi's name and power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
@@ -222,12 +223,34 @@ O. the tile layer: every bf16 kernel instance's shared memory as its
    cold cache times at least one candidate, a warm one none; a 10-step
    tuned wt103-47m-moe run from a cold cache times candidates in steps 1-2
    only, its loss finite and falling. Tuning is off again afterwards;
+P. expert parallelism (``dispatch="shard_map"``) on a real NCCL process
+   group of one rank (a file store in a temporary directory) and the mesh
+   (data 1, model 1): one wt103-47m-moe layer on 32 x 256 tokens (top-4 of
+   16, d 412, G 128), in bf16 and float32, K4/K5 against their plain
+   versions on the same routing (bf16 3e-2 and 1e-2 normwise, float32
+   1e-4; float32 gradients of x, we1 and we2 within 2e-4 relative), exactly
+   2 K4 and 2 all_to_alls forward, 2 K4, 2 K5 and 2 all_to_alls backward
+   and no other kernel, the dropped share at capacity factors 1.25 and 0.25
+   equal to a host count of the overflow, and at factor 4.0 (= E/k, nothing drops)
+   the sort path's kernels on the same routing within phase I's gates; K4
+   and K5 on the EP buffer (16 x 2,560 rows) timed beside their bound, plain
+   versions and ``torch.bmm``; 10 steps of wt103-47m-moe with
+   ``dispatch="shard_map"`` at batch 32 x 256, full width and depth, in
+   process on the mesh: finite, falling loss, exactly 4 K4, 2 K5 and 4
+   all_to_alls a layer every step, step time, tokens/s and peak memory
+   beside phases 9 and 13; in float32 at full depth, the first 3 losses and
+   one step's gradients on the mesh against the same with no mesh (the
+   capacity dispatch on ``torch.bmm``) within 2e-3 a leaf on pinned
+   routing under deterministic algorithms; and under deterministic algorithms 5 steps of the sort
+   dispatch on the mesh equal to 5 with no mesh bit for bit, with phase
+   9's launches;
 19. one ``{"kernels": [...]}`` JSON line (with A's wt103-262m-moe rows of
     K1, K2, K3 and K4, their launches from C, K6's rows at F's shapes,
     their launches from H, the K1-K4 rows' launches in J's and K's runs,
     K7's row at D 112 from L and its launches in M and N, and K4's and
-    K6's launches at llama4-scout's decode in N), then the device line
-    last.
+    K6's launches at llama4-scout's decode in N, and K4's and K5's rows on
+    P's EP buffer with their launches in P's 10-step run), then the device
+    line last.
 
 With ``--out``, the full results (every phase's numbers and the ptxas
 reports) are also written there as JSON.
@@ -302,6 +325,10 @@ BASELINES = {
 # table4_ablations.py pairs them: 4 experts of 512, top-1, softmax, switch
 # regularizer 1e-2, capacity factor 1.25 on the capacity dispatch.
 BASE_RUN = dict(arch="wt103-47m-moe", batch=32, seq=256, steps=15, option_steps=10)
+EP = dict(arch="wt103-47m-moe", tokens=32 * 256, steps=10, sort_steps=5)
+# Phase P: expert parallelism on one layer of wt103-47m-moe's step (32 x
+# 256 tokens, top-4 of 16 experts), then its 10-step run with
+# dispatch="shard_map" at BASE_RUN's batch, and 5 sort-dispatch steps.
 # Phases J and K: phase 9's model and batch; the FFN runs 15 steps, the
 # trainer options (gradient accumulation, compression, remat) 10 each.
 # (30 steps each here and in SWAP until the script passed half its limit
@@ -661,6 +688,11 @@ def main() -> None:
     _tile_layer_slice(args.seed, dev, gen, K, K7, ops, results)
     print(f"[O] took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ----------------------------------------------- P. expert parallelism
+    t0 = time.perf_counter()
+    ep_rows = _ep_slice(args.seed, dev, gen, K, ops, results)
+    print(f"[P] took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ------------------------------------------------------------ 19. report
     def row(kernel, shape, source, replaces):
         t = next(t for t in timings if t["kernel"] == kernel and t["shape"] == shape
@@ -708,7 +740,7 @@ def main() -> None:
     line = {"kernels": [
         train["rows"]["fused_w1"], train["rows"]["fused_w2"],
         train["rows"]["dw_streamed"], k4, train["rows"]["cvmm_dw"], k6, k7_row,
-        *pair_rows, *swap_rows]}
+        *pair_rows, *swap_rows, *ep_rows]}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1, default=str))
@@ -2196,35 +2228,344 @@ def _phase_i(seed, dev, gen, K, ops, routing):
     return out
 
 
-def _train_in_process(lm, seed, dev):
-    """``launch.train.main``'s loop and numbers for a model that has no
-    ``--arch``/``--ffn`` name (the baselines): BASE_RUN's steps, batch and
-    sequence, the synthetic stream of ``seed``, dropout from ``seed + 1``,
-    the trainer's optimizer; the step ends in a host read of the loss."""
+def _ep_slice(seed, dev, gen, K, ops, results):
+    """Phase P: expert parallelism on a real NCCL process group of one rank
+    (a file store in a temporary directory) and the mesh (data 1, model 1).
+    Returns the kernels line's K4 and K5 rows at the EP buffer's shapes."""
+    import tempfile
+
     import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+            out, rows = _phase_p(seed, dev, gen, K, ops, mesh, results)
+        finally:
+            dist.destroy_process_group()
+    results["phaseP"] = out
+    return rows
+
+
+def _phase_p(seed, dev, gen, K, ops, mesh, results):
+    """Phase P's gates and numbers (see the module docstring), on ``mesh``;
+    ``results`` holds phases 9 and 13's runs, printed beside its own."""
+    import types
+
+    import torch
+    from repro_torch import sharding
+    from repro_torch.common import map_leaves
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.core import dispatch, moe, routing
+    from repro_torch.data import DataIterator, make_dataset
+    from repro_torch.models import build_model
+    from repro_torch.runtime import init_train_state, make_train_step
+    from repro_torch.sharding import mesh_context
+
+    out, t0 = {}, time.perf_counter()
+    cfg = get_config(EP["arch"])
+    f, d, g, layers = cfg.ffn, cfg.d_model, cfg.ffn.expert_size, cfg.n_layers
+    E, k, n = f.n_experts, f.k, EP["tokens"]
+    ep = dataclasses.replace(f, dispatch="shard_map")
+    params = moe.init_moe(torch.Generator(device=dev).manual_seed(seed), d, f, layers,
+                          device=dev)
+    params = {key: v.requires_grad_() for key, v in params.items()}
+    x32 = torch.randn((n, d), generator=gen, device=dev)
+    cot32 = torch.randn((n, d), generator=gen, device=dev)
+
+    def layer(x, cfg_, backward):
+        """(y, dropped, grads of x, we1, we2) of one layer, with the kernel
+        launches and collectives of its forward and backward."""
+        for p in params.values():
+            p.grad = None
+        x = x.detach().requires_grad_()
+        K.reset_launch_counts()
+        sharding.reset_call_counts()
+        with mesh_context(mesh), torch.set_grad_enabled(backward):
+            y, aux = moe.apply_moe(params, x, cfg_)
+            fwd = dict(K.LAUNCHES) | dict(sharding.CALLS)
+            grads = None
+            if backward:
+                (y * cot32.to(y.dtype)).float().sum().backward()
+                grads = {"x": x.grad, "we1": params["we1"].grad, "we2": params["we2"].grad}
+        bwd = {key: v - fwd[key] for key, v in (dict(K.LAUNCHES) | dict(sharding.CALLS)).items()}
+        return y.detach(), float(aux["moe_dropped"]), grads, fwd, bwd
+
+    gated = (*K.LAUNCHES, "all_to_all")     # every kernel and the all_to_alls
+    zero = dict.fromkeys(gated, 0)
+    want_fwd = zero | {"cvmm": 2, "all_to_all": 2}
+    want_bwd = zero | {"cvmm": 2, "cvmm_dw": 2, "all_to_all": 2}
+    choices = []
+    for dn, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        x = x32.to(dt)
+        choices.clear()
+        with pinned_routing(routing, choices, replay=False):
+            yk, dropped, gk, fwd, bwd = layer(x, ep, True)
+        with pinned_routing(routing, choices, replay=True), plain_kernels(K):
+            yp, _, gp, _, _ = layer(x, ep, True)
+        ok, err, rel, lim = close(yk, yp, TOL[dn], dn, ulps=False)
+        grad_rel = {name: (torch.linalg.norm((gk[name] - gp[name]).float())
+                           / torch.linalg.norm(gp[name].float())).item() for name in gk}
+        print(f"[P] EP layer {dn}, {n} tokens, top-{k} of {E}, d {d}, G {g}, capacity "
+              f"{dispatch._capacity(n, k, E, ep.capacity_factor)}: K4/K5 against plain "
+              f"versions on the same routing: max_abs_err {err:.3g}, normwise {rel:.3g} "
+              f"({lim}); gradients' relative error {grad_rel}; launches and collectives "
+              f"forward {fwd}, backward {bwd}: {'ok' if ok else 'BAD'}")
+        if not ok:
+            fail(f"the EP layer's kernels disagree with their plain versions ({dn})")
+        if dn == "float32" and max(grad_rel.values()) > 2e-4:
+            fail(f"the EP layer's float32 gradients stray from the plain versions': {grad_rel}")
+        if ({key: fwd[key] for key in gated} != want_fwd
+                or {key: bwd[key] for key in gated} != want_bwd):
+            fail(f"EP layer launches: forward {fwd} (want {want_fwd}), backward {bwd} "
+                 f"(want {want_bwd})")
+        out[f"layer {dn}"] = {"max_abs_err": err, "normwise": rel, "grad_rel": grad_rel,
+                              "forward": fwd, "backward": bwd}
+        counts = torch.bincount(choices[0].reshape(-1), minlength=E).tolist()
+        cap = dispatch._capacity(n, k, E, ep.capacity_factor)
+        host = sum(max(0, c - cap) for c in counts) / (n * k)
+        print(f"[P] dropped at capacity factor {ep.capacity_factor} ({cap} rows an expert, "
+              f"loads {counts}): {dropped:.6f}, host count of the overflow {host:.6f}")
+        if abs(dropped - host) > 1e-6:
+            fail(f"EP dropped share {dropped} != the host count {host} ({dn})")
+        out[f"dropped {dn}"] = {"dropped": dropped, "host": host, "capacity": cap}
+        tight = dataclasses.replace(ep, capacity_factor=0.25)       # most pairs drop
+        cap = dispatch._capacity(n, k, E, tight.capacity_factor)
+        host = sum(max(0, c - cap) for c in counts) / (n * k)
+        with pinned_routing(routing, choices, replay=True):
+            _, dropped, _, _, _ = layer(x, tight, False)
+        print(f"[P] dropped at capacity factor 0.25 ({cap} rows an expert): {dropped:.6f}, "
+              f"host count of the overflow {host:.6f}")
+        if abs(dropped - host) > 1e-6:
+            fail(f"EP dropped share {dropped} != the host count {host} at 0.25 ({dn})")
+        out[f"dropped at 0.25 {dn}"] = {"dropped": dropped, "host": host, "capacity": cap}
+        roomy = dataclasses.replace(ep, capacity_factor=E / k)       # nothing drops
+        with pinned_routing(routing, choices * 2, replay=True):
+            ye, dropped_e, _, _, _ = layer(x, roomy, False)
+            ys, _, _, sort_launches, _ = layer(x, f, False)
+        ok, err, rel, lim = close(ye, ys, TOL[dn], dn, ulps=False)
+        print(f"[P] EP layer at capacity factor {E / k:g} against the sort path's kernels "
+              f"({sort_launches['fused_w1']} K1, {sort_launches['fused_w2']} K2), {dn}: "
+              f"max_abs_err {err:.3g}, normwise {rel:.3g} ({lim}); dropped {dropped_e}: "
+              f"{'ok' if ok else 'BAD'}")
+        if not ok or dropped_e != 0.0:
+            fail(f"the EP layer without drops disagrees with the sort path ({dn})")
+        out[f"ep vs sort {dn}"] = {"max_abs_err": err, "normwise": rel}
+    print(f"[P] the layer's gates took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    rows = _time_ep_kernels(dev, gen, K, ops, E, dispatch._capacity(n, k, E, ep.capacity_factor),
+                            d, g)
+    print(f"[P] the kernels' timing took {time.perf_counter() - t0:.1f} s", flush=True)
+    del params, x32, cot32
+    torch.cuda.empty_cache()
+
+    # the training main path with dispatch="shard_map", in process
+    t0 = time.perf_counter()
+    lm = build_model(cfg.with_ffn(ep), ep_degree=mesh.shape["model"])
+    want = dict.fromkeys(K.LAUNCHES, 0) | {"cvmm": 4 * layers, "cvmm_dw": 2 * layers}
+    cli = types.SimpleNamespace(main=lambda argv, eval_batches=0: _train_in_process(
+        lm, seed, dev, steps=EP["steps"], mesh=mesh))
+    run = _train_main_path("P", [f"(in process: {EP['arch']} dispatch=shard_map on mesh "
+                                 f"{mesh.shape}, {EP['steps']} steps)"], want, K, cli)
+    _print_run("P", run)
+    bad = [i for i, c in enumerate(run["collectives_per_step"])
+           if c["all_to_all"] != 4 * layers]
+    print(f"[P] collectives per step {run['collectives_per_step'][-1]}; steps off "
+          f"{4 * layers} all_to_alls: {bad}; beside phase 9 (fused rung) "
+          f"{results['training']['step_ms']:.2f} ms and phase 13 (unfused) "
+          f"{results['training_unfused']['step_ms']:.2f} ms a step")
+    if bad:
+        fail(f"EP steps {bad} did not run 2 all_to_alls forward and 2 backward a layer")
+    out["train"] = run
+    for row in rows:
+        row["launches"] = run["launches"][row["name"]]
+    torch.cuda.empty_cache()
+    print(f"[P] the EP run took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+
+    # float32 at full depth: the mesh's EP step against no mesh (the capacity
+    # dispatch on torch.bmm), same routing, under deterministic algorithms (as
+    # phase B) so that the two differ only in K4/K5's arithmetic against
+    # cuBLAS's, not in the combine's atomic order too
+    opt = OptimizerConfig(total_steps=3)
+    stream = DataIterator(make_dataset("synthetic", cfg.vocab_size), BASE_RUN["batch"],
+                          BASE_RUN["seq"] + 1, seed=seed)
+    batches = [{"tokens": torch.as_tensor(stream.next()["tokens"], device=dev)}
+               for _ in range(3)]
+    lm32 = build_model(cfg.with_ffn(ep).override(dtype="float32"))
+    choices = []
+    with deterministic_algorithms("P float32"):
+        with pinned_routing(routing, choices, replay=False):
+            gm, lmesh = _three_steps_fn(batches, opt, seed, dev, BASE_RUN["batch"],
+                                        mesh)(lm32)
+        with pinned_routing(routing, choices, replay=True):
+            gn, lnone = _three_steps_fn(batches, opt, seed, dev, BASE_RUN["batch"])(lm32)
+    worst, leaf, median = _compare(gm, gn)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lmesh, lnone))
+    print(f"[P] float32, depth {layers}: EP on the mesh against no mesh (the capacity "
+          f"dispatch on torch.bmm), pinned routing: worst relative gradient error "
+          f"{worst:.3g} at {leaf}, median {median:.3g}; losses {lmesh} vs {lnone}, worst "
+          f"relative {loss_err:.3g} (tol {GRAD_TOL['float32']})")
+    if not (worst <= GRAD_TOL["float32"] and loss_err <= GRAD_TOL["float32"]):
+        fail("the EP step on the mesh strays from the step with no mesh")
+    out["float32 mesh vs none"] = {"worst_grad_rel": worst, "worst_leaf": leaf,
+                                   "median": median, "losses_mesh": lmesh,
+                                   "losses_none": lnone}
+    del lm32, gm, gn
+    torch.cuda.empty_cache()
+    print(f"[P] the float32 gate took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the default sort dispatch: the mesh adds nothing at world size 1
+    lm = build_model(cfg)
+    sort = {}
+    with deterministic_algorithms("P"):
+        for name, m in (("mesh", mesh), ("none", None)):
+            stream = DataIterator(make_dataset("synthetic", cfg.vocab_size), BASE_RUN["batch"],
+                                  BASE_RUN["seq"] + 1, seed=seed)
+            state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
+                                     use_mems=True, batch=BASE_RUN["batch"], device=dev,
+                                     mesh=m)
+            step = make_train_step(lm, OptimizerConfig(total_steps=EP["sort_steps"]), mesh=m)
+            drop = torch.Generator(device=dev).manual_seed(seed + 1)
+            K.reset_launch_counts()
+            losses = []
+            for _ in range(EP["sort_steps"]):
+                batch = {"tokens": torch.as_tensor(stream.next()["tokens"], device=dev)}
+                state, metrics = step(state, batch, drop)
+                losses.append(float(metrics["loss"]))
+            leaves = {}
+            map_leaves(state["params"], lambda path, p: leaves.setdefault(path, p.detach()))
+            sort[name] = (losses, leaves, dict(K.LAUNCHES))
+    (lmesh, pm, km), (ln, pn, kn) = sort["mesh"], sort["none"]
+    differ = [p for p in pn if not same_bits(pm[p], pn[p])]
+    want = _per_layer(layers * EP["sort_steps"], 2, 1, 2, 1)
+    print(f"[P] sort dispatch, {EP['sort_steps']} steps under the mesh against none: losses "
+          f"{lmesh} vs {ln}; {len(differ)} of {len(pn)} parameters not bit-equal; launches "
+          f"{km} and {kn} (want {want})")
+    if lmesh != ln or differ:
+        fail(f"the one-rank mesh changed the sort dispatch's steps ({differ[:3]})")
+    if km != want or kn != want:
+        fail(f"sort dispatch launches {km}, {kn}, expected {want}")
+    out["sort mesh vs none"] = {"losses": lmesh, "not_bit_equal": len(differ),
+                                "launches": km}
+    return out, rows
+
+
+def _time_ep_kernels(dev, gen, K, ops, E, cap, d, g):
+    """K4 (the w1 and w2 forward products) and K5 (dW1, dW2) on the EP
+    shard's dense (E, cap, ·) buffer in its tile layout (``ops._tile_layout``
+    of E groups of ``cap`` rows), bf16: against their plain versions, timed
+    as phase 10 does beside the bound, the plain version and ``torch.bmm``
+    on the (E, cap, ·) buffers. Bounds: the buffer's rows (every one is an
+    input), each input read once and each output written once at the real
+    widths, and 2 rows d g operations a product. Returns the kernels line's
+    rows (K4 w1 with w2 beside it, K5 dW1 with dW2)."""
+    import torch
+    from repro_torch.kernels.cvmm import LANE
+
+    rows = E * cap
+    sizes = torch.full((E,), cap, dtype=torch.int32, device=dev)
+    new_pos, te, m_pad = ops._tile_layout(sizes, rows, E)
+    bf = torch.bfloat16
+
+    def padded(a):                     # (E, cap, w) -> (M_pad, round_up(w, LANE))
+        w = a.shape[-1]
+        out = a.new_zeros((m_pad, -(-w // LANE) * LANE))
+        out[new_pos, :w] = a.reshape(rows, w)
+        return out
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    x, u = rnd(E, cap, d), rnd(E, cap, g)
+    dh, dy = rnd(E, cap, g), rnd(E, cap, d)
+    w1, w2 = rnd(E, d, g, scale=d ** -0.5), rnd(E, g, d, scale=g ** -0.5)
+    xp, up, dhp, dyp = padded(x), padded(u), padded(dh), padded(dy)
+    w1p, w2p = ops._pad_w(w1), ops._pad_w(w2)
+    b = 2
+    specs = [("cvmm", "K4 h = x w1 (EP forward)", lambda: K.cvmm(xp, te, w1p),
+              lambda: K.cvmm_plain(xp, te, w1p), lambda: torch.bmm(x, w1),
+              rows * d * b + E * d * g * b + rows * g * b),
+             ("cvmm", "K4 y = u w2 (EP forward)", lambda: K.cvmm(up, te, w2p),
+              lambda: K.cvmm_plain(up, te, w2p), lambda: torch.bmm(u, w2),
+              rows * g * b + E * d * g * b + rows * d * b),
+             ("cvmm_dw", "K5 dW1 = x^T dh (EP backward)", lambda: K.cvmm_dw(xp, te, dhp, E),
+              lambda: K.cvmm_dw_plain(xp, te, dhp, E),
+              lambda: torch.bmm(x.transpose(1, 2), dh),
+              rows * d * b + rows * g * b + E * d * g * 4),
+             ("cvmm_dw", "K5 dW2 = u^T dy (EP backward)", lambda: K.cvmm_dw(up, te, dyp, E),
+              lambda: K.cvmm_dw_plain(up, te, dyp, E),
+              lambda: torch.bmm(u.transpose(1, 2), dy),
+              rows * g * b + rows * d * b + E * d * g * 4)]
+    flops = 2 * rows * d * g
+    shape = f"EP buffer {E} x {cap} rows (M_pad {m_pad}), d {d}, G {g}"
+    timed = []
+    for name, case, fn, plain, lib, nbytes in specs:
+        err = (fn().float() - plain().float()).abs().max().item()
+        bb, bf_ = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
+        row = {"case": case, "shape": shape, "dtype": "bfloat16", "max_abs_err": err,
+               "ms": _time_ms(fn), "device_ms": _device_ms(fn), "plain_ms": _time_ms(plain),
+               "library_ms": _time_ms(lib), "library_device_ms": _device_ms(lib),
+               "bound_ms": 1e3 * max(bb, bf_), "bound_by": "bytes" if bb >= bf_ else "operations",
+               "bound_bytes": nbytes, "bound_flops": flops}
+        print(f"[P] {case} bf16, {shape}: kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} "
+              f"device alone), plain {row['plain_ms']:.4f} ms, library (torch.bmm) "
+              f"{row['library_ms']:.4f} ms ({row['library_device_ms']:.4f} device alone), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); max_abs_err against plain {err:.3g}")
+        lim = TOL["bfloat16"] * max(plain().float().abs().max().item(), 1.0)
+        if not err <= lim:
+            fail(f"{case}: the kernel differs from its plain version by {err} (limit {lim})")
+        timed.append((name, row))
+    out = []
+    for name, source, replaces in (("cvmm", "cvmm.cu", "src/repro/kernels/cvmm.py:241"),
+                                   ("cvmm_dw", "cvmm_dw.cu", "src/repro/kernels/cvmm.py:296")):
+        first, second = [row for kernel, row in timed if kernel == name]
+        out.append({"name": name, "route": "cuda",
+                    "source": f"src/repro_torch/kernels/csrc/{source}", "replaces": replaces,
+                    "launches": None, **{key: first[key] for key in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                        "device_ms", "library_device_ms", "shape", "case", "dtype")},
+                    "second_case": second, "path": "expert parallelism (shard_map)"})
+    return out
+
+
+def _train_in_process(lm, seed, dev, steps=BASE_RUN["steps"], mesh=None):
+    """``launch.train.main``'s loop and numbers for a model that has no
+    ``--arch``/``--ffn`` name (the baselines, the EP config): BASE_RUN's
+    batch and sequence, ``steps`` steps, the synthetic stream of ``seed``,
+    dropout from ``seed + 1``, the trainer's optimizer, on ``mesh`` if
+    given (then also each step's collectives); the step ends in a host read
+    of the loss."""
+    import torch
+    from repro_torch import sharding
     from repro_torch.common import tree_leaves
     from repro_torch.configs import OptimizerConfig
     from repro_torch.data import DataIterator, make_dataset
     from repro_torch.kernels import cvmm as K
     from repro_torch.runtime import init_train_state, make_train_step
 
-    b, s, steps = BASE_RUN["batch"], BASE_RUN["seq"], BASE_RUN["steps"]
+    b, s = BASE_RUN["batch"], BASE_RUN["seq"]
     opt = OptimizerConfig(total_steps=steps)
     stream = DataIterator(make_dataset("synthetic", lm.cfg.vocab_size), b, s + 1, seed=seed)
     state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
-                             use_mems=True, batch=b, device=dev)
-    step, gen = make_train_step(lm, opt), torch.Generator(device=dev).manual_seed(seed + 1)
+                             use_mems=True, batch=b, device=dev, mesh=mesh)
+    step = make_train_step(lm, opt, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
     out = {"losses": [], "step_s": [], "launches": [], "moe_dropped": [],
-           "tokens_per_step": b * s,
+           "collectives": [], "tokens_per_step": b * s,
            "n_params": sum(p.numel() for p in tree_leaves(state["params"]))}
     for _ in range(steps):
         batch = {"tokens": torch.as_tensor(stream.next()["tokens"], device=dev)}
-        before = dict(K.LAUNCHES)
+        before, calls = dict(K.LAUNCHES), dict(sharding.CALLS)
         t0 = time.perf_counter()
         state, m = step(state, batch, gen)
         out["losses"].append(float(m["loss"]))
         out["step_s"].append(time.perf_counter() - t0)
         out["launches"].append({key: K.LAUNCHES[key] - before[key] for key in before})
+        out["collectives"].append({key: sharding.CALLS[key] - calls[key] for key in calls})
         out["moe_dropped"].append(float(m["moe_dropped"]))
     return out
 
@@ -2322,9 +2663,9 @@ def _phase_k(seed, dev, K, fused):
     for option, want in options.items():
         last = {}
 
-        def capture(grads, err, mode):
+        def capture(grads, err, mode, *mesh_args):
             last["in"] = (grads, err)
-            return compress(grads, err, mode)
+            return compress(grads, err, mode, *mesh_args)
 
         steps_mod.compress_grads = capture
         try:
@@ -3321,6 +3662,7 @@ def _train_main_path(tag, argv, want, K, train_cli, label="", eval_batches=0,
             "n_params": out["n_params"], "first5": first, "last5": last,
             "eval_losses": out.get("eval_losses"), "eval_ce": out.get("eval_ce"),
             "moe_dropped_per_step": out.get("moe_dropped"),
+            "collectives_per_step": out.get("collectives"),
             **({"state": out["state"]} if keep_state else {})}
 
 
@@ -3331,24 +3673,27 @@ def _print_run(tag, run):
           f"{run['max_memory_allocated'] / 2**30:.2f} GiB")
 
 
-def _three_steps_fn(batches, opt, seed, dev, batch=TRAIN["batch"]):
+def _three_steps_fn(batches, opt, seed, dev, batch=TRAIN["batch"], mesh=None):
     """``three_steps(lm)``: the gradients of the first batch, then 3 train
     steps from the same initial state (XL memories for ``batch`` rows);
-    returns (grads by leaf path, losses)."""
+    returns (grads by leaf path, losses). With ``mesh``, all of it on the
+    mesh (a one-rank mesh: the whole batch)."""
     import torch
     from repro_torch.common import map_leaves
     from repro_torch.runtime import init_train_state, make_train_step
+    from repro_torch.sharding import mesh_context
 
     def three_steps(lm):
         state = init_train_state(lm, torch.Generator(device=dev).manual_seed(seed), opt,
-                                 use_mems=True, batch=batch, device=dev)
-        loss, _ = lm.loss(state["params"], batches[0], train=True,
-                          gen=torch.Generator(device=dev).manual_seed(seed + 1),
-                          mems=state["mems"])
-        loss.backward()
+                                 use_mems=True, batch=batch, device=dev, mesh=mesh)
+        with mesh_context(mesh) if mesh is not None else nullcontext():
+            loss, _ = lm.loss(state["params"], batches[0], train=True,
+                              gen=torch.Generator(device=dev).manual_seed(seed + 1),
+                              mems=state["mems"])
+            loss.backward()
         grads = {}
         map_leaves(state["params"], lambda path, p: grads.setdefault(path, p.grad.clone()))
-        step = make_train_step(lm, opt)
+        step = make_train_step(lm, opt, mesh=mesh)
         drop = torch.Generator(device=dev).manual_seed(seed + 2)
         losses = []
         for b in batches:

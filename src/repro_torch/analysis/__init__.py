@@ -10,7 +10,8 @@ plans.py      Plan invariants of ``CvmmPlan``, ``GatherPlan`` and
               ``DedupGatherPlan`` (tile purity, injective slots, the
               sentinel and zero gates on slack slots, the dedup union),
               swept over adversarial routings through the real builders,
-              the decode skeleton's assembled plans included.
+              the decode skeleton's assembled plans and the expert-parallel
+              shard's (``dispatch.ep_local_plan``) included.
 smem.py       Shared memory: a launch inventory itemised from the CUDA
               sources, which the tuner prunes by, proves every schedule
               the tuner can emit fits the opt-in limit. It takes the
@@ -23,8 +24,10 @@ schedules.py  Partitions: the port's own item walks (``row_gemm``, K3/K5's
 check.py      The CLI, ``python -m repro_torch.analysis.check --all``, and
               ``run_passes``, which tests share.
 
-The reference's sharding pass (``analysis/sharding.py``) waits for the
-port's device mesh.
+The reference's sharding pass (``analysis/sharding.py``) sweeps the FSDP
+and tensor-parallel rule tables of ``sharding/logical.py``, which the port
+does not have: its mesh shards only the experts (ROADMAP.md, queue 1
+item 8).
 """
 from .report import Finding, Report
 

@@ -202,6 +202,9 @@ _GATHER_CASES = (("gather-random", 40, 300, 4), ("gather-colliding", 100, 64, 8)
 _DECODE_CASES = (("decode-b4", 4, 2, 4), ("decode-b8", 8, 2, 4), ("decode-b1-k1", 1, 1, 2),
                  ("decode-b2-e8", 2, 2, 8), ("decode-granite-n1", 1, 8, 40),
                  ("decode-granite-n8", 8, 8, 40), ("decode-granite-n32", 32, 8, 40))
+# (e_local, cap_g): the expert-parallel shard's dense buffer, the reference's
+# cases (dispatch.ep_local_plan)
+_EP_CASES = ((2, 256), (4, 128), (1, 384), (3, 64))
 
 
 def _topk_idx(rng, n: int, e: int, k: int) -> np.ndarray:
@@ -249,6 +252,17 @@ def check_plans() -> Tuple[List[Finding], int]:
         if not np.array_equal(_np(dplan.tok_src), np.repeat(np.arange(n), s)):
             findings.append(_bad("tok-src", dname, "dedup tok_src != the selections' tokens"))
         checks += 7
+
+    # Expert parallelism: a shard's buffer rows are expert-major, row r of
+    # expert r // cap_g, through the entry point the EP path names.
+    from ..core import dispatch
+    for e_local, cap_g in _EP_CASES:
+        name = f"ep e_local={e_local} cap_g={cap_g}"
+        plan = dispatch.ep_local_plan(e_local, cap_g, device="cpu")
+        findings += verify_plan(plan, e_local * cap_g, name)
+        findings += check_routing(plan, np.repeat(np.arange(e_local), cap_g)[:, None],
+                                  np.ones((e_local * cap_g, 1), np.float32), name)
+        checks += 12
 
     # Decode skeletons: for any routing the cached layout must assemble into
     # a plan that passes the same oracle as every per-call plan.

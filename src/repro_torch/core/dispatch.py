@@ -39,12 +39,27 @@ the reference:
 
 On the CPU the kernel rungs run the kernels' plain versions. The reference's ``*_interpret`` names select the same rungs here.
 
+"shard_map" is explicit expert parallelism over the installed mesh
+(``sharding.current_mesh``; GShard's pattern, ``_shard_map_path``): each
+rank packs its own tokens into an (E, C, d) capacity buffer, one
+all_to_all over the "model" axis brings each rank its E/mp experts' rows
+from every peer, ``_ep_local_ffn`` runs them on the rank's expert shard
+(``ops.cvmm``: K4 forward, K4 for dX and K5 for dW on CUDA), and the
+inverse all_to_all brings the rows back. A rank holds experts
+[m E/mp, (m + 1) E/mp) of its model coordinate m (``expert_shards``,
+``convert.shard_experts``). With no mesh, no "model" axis or an expert
+count the axis does not divide it is the capacity path, as in the
+reference.
+
+Under a mesh every rank runs the sort path on its own tokens with every
+expert (the reference pins the sort path to replicated there). The
+capacity ("einsum") dispatch sizes its capacity from the global token
+count, so on a mesh of more than one rank it raises (ROADMAP.md, queue 1
+item 8).
+
 Serving installs a decode provider (``set_decode_provider``) that claims
 small calls and runs them on a cached routing-free DecodePlan
-(``ops.moe_mlp_decode``). The reference also pins the sort path to
-replicated under an active device mesh and constrains the capacity
-buffers to expert sharding; the port has no mesh yet, so neither is
-there, and the "shard_map" dispatch raises (ROADMAP queue 1 item 8).
+(``ops.moe_mlp_decode``).
 """
 from __future__ import annotations
 
@@ -55,6 +70,7 @@ import torch
 from ..common import act_fn, cdiv, round_up
 from ..configs.base import FFNConfig
 from ..kernels import ops as kops
+from ..sharding import all_to_all, current_mesh, pmean
 from .routing import SelectionInfo
 
 
@@ -245,6 +261,12 @@ def _einsum_path(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
     """The capacity ("einsum") dispatch: pack, three batched products over
     the (E, C, ·) buffers, combine. Returns (y (N, d), the dropped share of
     the (token, k) pairs, float32)."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"the capacity ('einsum') dispatch sizes its capacity from the global "
+            f"token count, which a rank of a {mesh.size}-rank mesh does not see; it is "
+            "not ported for more than one rank (ROADMAP.md, queue 1 item 8)")
     n, d = xf.shape
     cap = _capacity(n, cfg.k, e, cfg.capacity_factor)
     buf, meta = _pack_capacity(xf, info, e, cap)
@@ -254,6 +276,124 @@ def _einsum_path(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
     y = _combine_capacity(buf_out, info, meta, n)
     dropped = 1.0 - torch.mean(meta[3].float())
     return y, dropped
+
+
+def expert_shards(cfg: FFNConfig, mesh=None) -> int:
+    """How many ranks a MoE layer's experts are split over: the mesh's
+    "model" axis under dispatch="shard_map", else 1 (every rank holds every
+    expert). ``mesh`` defaults to the installed one."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if cfg.dispatch != "shard_map" or mesh is None or "model" not in mesh.axis_names:
+        return 1
+    return mesh.shape["model"]
+
+
+def ep_local_plan(e_local: int, cap_g: int, device="cuda") -> kops.CvmmPlan:
+    """The CvmmPlan one EP shard's buffer implies: after the dispatch
+    all_to_all a shard holds a dense (E/mp, C*mp, d) capacity buffer whose
+    row r belongs to expert r // cap_g, so the plan depends on the shape
+    alone. ``ops.cvmm`` derives the same layout from the buffer's group
+    sizes; ``analysis.plans`` and ``ep_plan_stats`` verify it through this
+    entry point. (The reference's ``n_experts_hint``, unused there, is
+    left out.)"""
+    n_rows = e_local * cap_g
+    idx = torch.arange(e_local, dtype=torch.int64, device=device).repeat_interleave(
+        cap_g)[:, None]
+    gates = torch.ones((n_rows, 1), dtype=torch.float32, device=device)
+    return kops.make_moe_plan(idx, e_local, gates)
+
+
+def ep_plan_stats(cfg: FFNConfig, n_tokens: int, e: int, mesh, device="cuda") -> Dict:
+    """The row counts of the plan an EP shard runs for a (global token
+    count, expert count, mesh): ``ops.plan_dma_stats`` of ``ep_local_plan``,
+    verified, with ``e_local``, ``capacity`` and ``rows_per_shard``. Reads
+    only ``mesh.shape`` and ``mesh.axis_names``."""
+    mp = mesh.shape["model"]
+    n_shards = 1
+    for a in mesh.axis_names:
+        n_shards *= mesh.shape[a]
+    cap = _capacity(n_tokens // n_shards, cfg.k, e, cfg.capacity_factor)
+    e_local, cap_g = e // mp, cap * mp
+    plan = ep_local_plan(e_local, cap_g, device=device)
+    stats = kops.plan_dma_stats(plan, e_local * cap_g, verify=True)
+    stats.update(e_local=e_local, capacity=cap, rows_per_shard=e_local * cap_g)
+    return stats
+
+
+def _ep_local_ffn(cfg: FFNConfig, buf: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                  w1g) -> torch.Tensor:
+    """One EP shard's expert FFN on its (E_local, C_g, d) buffer: the
+    expert-major rows are sorted already, so ``ops.cvmm`` runs them on the
+    sort path's rung (on CUDA the unfused kernels: K4 forward, K4 for dX
+    and K5 for dW). impl "einsum" and "dense" keep the reference's einsum
+    rung, and "ragged"/"ref" the plain grouped matmul: CPU only."""
+    impl = resolve_impl(cfg, buf.device)
+    e_local, cap_g, d = buf.shape
+    if buf.device.type == "cuda" and not impl.startswith("pallas"):
+        raise NotImplementedError(
+            f"impl={impl!r} is a plain CPU rung; on CUDA the EP shard runs "
+            "'pallas_fused' or 'pallas' (K4 and K5)")
+    if impl in ("einsum", "dense"):
+        h = torch.bmm(buf, w1)
+        hg = torch.bmm(buf, w1g) if w1g is not None else None
+        return torch.bmm(_expert_ffn(cfg, h, hg), w2)
+    rows = buf.reshape(e_local * cap_g, d)
+    group_sizes = torch.full((e_local,), cap_g, dtype=torch.int32, device=buf.device)
+    cvmm_impl = impl if impl.startswith("pallas") else "ragged"
+    h = kops.cvmm(rows, group_sizes, w1, impl=cvmm_impl)
+    hg = kops.cvmm(rows, group_sizes, w1g, impl=cvmm_impl) if w1g is not None else None
+    out = kops.cvmm(_expert_ffn(cfg, h, hg), group_sizes, w2, impl=cvmm_impl)
+    return out.reshape(e_local, cap_g, d)
+
+
+def _to_experts(buf: torch.Tensor, group, mp: int) -> torch.Tensor:
+    """(E, C, d) on each rank of the model group -> (E/mp, mp*C, d): rank m
+    gets experts [m E/mp, (m+1) E/mp) of every peer, peers' rows in rank
+    order (the reference's tiled all_to_all, split 0, concat 1)."""
+    e, cap, d = buf.shape
+    got = all_to_all(buf, group).reshape(mp, e // mp, cap, d)
+    return got.transpose(0, 1).reshape(e // mp, mp * cap, d)
+
+
+def _from_experts(out: torch.Tensor, group, mp: int) -> torch.Tensor:
+    """The inverse of ``_to_experts``: (E/mp, mp*C, d) -> (E, C, d)."""
+    e_local, rows, d = out.shape
+    back = out.reshape(e_local, mp, rows // mp, d).transpose(0, 1)
+    return all_to_all(back.reshape(mp * e_local, rows // mp, d), group)
+
+
+def _shard_map_path(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
+                    info: SelectionInfo, e: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Explicit expert parallelism: this rank's tokens ``xf`` (the
+    reference's n // n_shards, so the token count divides) packed into an
+    (E, C, d) buffer at the capacity of its own token count, one all_to_all
+    over "model" to (E/mp, C*mp, d), the rank's expert shard
+    (``params["we1"]`` holds E/mp experts), the inverse all_to_all, the
+    local combine. Exactly 2 all_to_alls a layer forward (and 2 backward).
+    The dropped share is ``pmean``'d over the whole mesh. Without a mesh or
+    a "model" axis, or with an expert count the axis does not divide, it is
+    the capacity path, as in the reference."""
+    mesh = current_mesh()
+    n, d = xf.shape
+    if mesh is None or "model" not in mesh.axis_names:
+        return _einsum_path(params, xf, cfg, info, e)
+    mp = mesh.shape["model"]
+    if e % mp or n == 0:
+        return _einsum_path(params, xf, cfg, info, e)
+    if params["we1"].shape[0] * mp != e:
+        raise ValueError(f"dispatch='shard_map' on a model axis of {mp}: a rank holds "
+                         f"{e // mp} of the {e} experts, got {params['we1'].shape[0]} "
+                         "(convert.shard_experts)")
+    cap = _capacity(n, cfg.k, e, cfg.capacity_factor)
+    buf, meta = _pack_capacity(xf, info, e, cap)                # (E, C, d)
+    group = mesh.group("model")
+    w1 = params["we1"].to(xf.dtype)
+    w2 = params["we2"].to(xf.dtype)
+    w1g = params["we1g"].to(xf.dtype) if cfg.glu_experts else None
+    out = _ep_local_ffn(cfg, _to_experts(buf, group, mp), w1, w2, w1g)
+    y = _combine_capacity(_from_experts(out, group, mp), info, meta, n)
+    dropped = 1.0 - torch.mean(meta[3].float())
+    return y, pmean(dropped, mesh.group())
 
 
 # Serving-layer decode fast path: the engine (repro_torch.serving) installs a
@@ -272,12 +412,11 @@ def set_decode_provider(fn) -> None:
 def expert_mlp(params: Dict, xf: torch.Tensor, cfg: FFNConfig,
                info: SelectionInfo, e: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Planned execution of one MoE layer's expert MLP at a fixed selection,
-    by ``cfg.dispatch``: "sort" (dropless, the kernels' path) or "einsum"
-    (capacity). Returns (y (N, d), dropped fraction)."""
+    by ``cfg.dispatch``: "sort" (dropless, the kernels' path), "einsum"
+    (capacity) or "shard_map" (capacity, experts sharded over the mesh's
+    "model" axis). Returns (y (N, d), dropped fraction)."""
     if cfg.dispatch == "shard_map":
-        raise NotImplementedError(
-            "dispatch='shard_map' (expert parallelism over a device mesh) is "
-            "not ported yet (ROADMAP queue 1 item 8)")
+        return _shard_map_path(params, xf, cfg, info, e)
     if cfg.dispatch != "sort":
         return _einsum_path(params, xf, cfg, info, e)
     zero = torch.zeros((), device=xf.device)

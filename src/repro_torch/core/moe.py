@@ -14,7 +14,7 @@ import torch.nn.functional as F
 from ..common import act_fn, round_up
 from ..configs.base import FFNConfig
 from . import init as initlib
-from .dispatch import expert_mlp
+from .dispatch import expert_mlp, expert_shards
 from .regularizers import REGULARIZERS, usage_stats
 from .routing import SelectionInfo, select_experts, select_experts_sbase
 
@@ -85,13 +85,13 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg: FFNConfig, *,
               collect_stats: bool = False) -> Tuple[torch.Tensor, Dict]:
     """y_hat = sum_{e in E_x} W2^e s[e] act(W1^e x)  (paper Eq. 11) + aux.
     ``aux["moe_reg"]`` is the scaled regularizer, differentiable through the
-    router; ``gen`` draws the gating noise and the expert dropout mask in
+    router (under a mesh, of the global batch's routing); ``gen`` draws the gating noise and the expert dropout mask in
     training; with ``collect_stats``, ``aux["usage"]`` is ``usage_stats``
     of the routing."""
     lead = x.shape[:-1]
     d = x.shape[-1]
     xf = x.reshape(-1, d)
-    e = params["we1"].shape[0]
+    e = params["we1"].shape[0] * expert_shards(cfg)     # padded; a rank's shard
     info = _route(params, xf, cfg, e, gen, train)
     y, dropped = expert_mlp(params, xf, cfg, info, e)
     if cfg.n_shared_experts:

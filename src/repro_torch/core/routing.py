@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import FFNConfig
+from ..sharding import batch_logsumexp, current_mesh, global_draw
 
 
 class SelectionInfo(NamedTuple):
@@ -68,13 +69,16 @@ def two_stage_topk(ua: torch.Tensor, ub: torch.Tensor, k: int,
 def sinkhorn(logits: torch.Tensor, n_iters: int = 8) -> torch.Tensor:
     """Log-space Sinkhorn normalization (Clark et al. 2022, S-BASE): a
     (N, E) soft assignment whose rows sum to 1 and whose columns sum to
-    N/E, in the dtype of ``logits`` (S-BASE passes float32)."""
+    N/E, in the dtype of ``logits`` (S-BASE passes float32). Under a mesh
+    ``logits`` holds this rank's rows, and the columns (and N) are the
+    global batch's."""
     n, e = logits.shape
     f = logits.new_zeros((n, 1))                     # row potentials
     g = logits.new_zeros((1, e))                     # column potentials
-    log_col = math.log(n / e)
+    mesh = current_mesh()
+    log_col = math.log(n * (mesh.size if mesh is not None else 1) / e)
     for _ in range(n_iters):
-        g = log_col - torch.logsumexp(logits + f, dim=0, keepdim=True)
+        g = log_col - batch_logsumexp(logits + f)
         f = -torch.logsumexp(logits + g, dim=1, keepdim=True)
     return torch.exp(logits + f + g)
 
@@ -104,15 +108,16 @@ def select_experts(logits: torch.Tensor, cfg: FFNConfig, *,
     """logits (N, E_padded) = x @ W3; experts at or past ``n_valid_experts``
     are padding and masked out. In training with a generator, noisy gating
     (paper Eq. 13) adds N(0, 1) * softplus(``noise_logits``) to the masked
-    logits when ``noise_logits`` (N, E_padded) = x @ W4 is given, and with
+    logits when ``noise_logits`` (N, E_padded) = x @ W4 is given (drawn for
+    the global batch, ``sharding.global_draw``), and with
     ``cfg.expert_dropout`` > 0 whole experts are dropped from ``sel``; the
     noise is drawn first, as in the reference."""
     e = logits.shape[1]
     k = cfg.k
     logits = _mask_padded(logits, n_valid_experts)
     if noise_logits is not None and train and gen is not None:
-        noise = torch.randn(logits.shape, generator=gen, device=logits.device,
-                            dtype=logits.dtype)
+        noise = global_draw(lambda shape: torch.randn(
+            shape, generator=gen, device=logits.device, dtype=logits.dtype), logits.shape)
         logits = logits + noise * F.softplus(noise_logits)
     probs = torch.softmax(logits, dim=-1)
 

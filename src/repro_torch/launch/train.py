@@ -1,12 +1,13 @@
-"""Train a language model with the port, on one device.
+"""Train a language model with the port, on one device or on a mesh of
+ranks.
 
     python -m repro_torch.launch.train --arch wt103-47m-moe --steps 30 \
         --batch 32 --seq 256 [--ffn KIND] [--reduced] [--device cpu] \
-        [--data synthetic|/path/corpus] [--grad-accum N] \
+        [--mesh DATAxMODEL] [--data synthetic|/path/corpus] [--grad-accum N] \
         [--grad-compression none|bf16|int8] [--remat none|dots|full] \
         [--ckpt-dir DIR [--ckpt-every N] [--keep N] [--resume]]
 
-The reference's ``launch/train.py`` on a single device: the same optimizer
+The reference's ``launch/train.py``: the same optimizer
 (AdamW, cosine schedule over ``--steps``, clipping at 0.25), the same data
 for a seed (the synthetic stream, or ``seq + 1``-byte windows of a local
 byte corpus; ``--seq`` next-token targets a row), and XL memories carried
@@ -52,11 +53,29 @@ backward) is pinned around the call instead:
     finally:
         ops.set_default_impl(None)
 
-Multi-device meshes are not ported yet (ROADMAP queue 1 item 8).
+``--mesh DATAxMODEL`` (default ``1x1``) trains on a mesh of that many ranks,
+one process a device, started by ``torch.distributed.run``:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --mesh 2x2 ...
+
+Every rank reads the same global batch and takes its rows of it; the
+gradients are all-reduced (``runtime/steps.py``), so the run computes one
+process's steps on the global batch. The experts are padded to a multiple
+of the "model" axis, as in the reference; they are sharded over it under
+``dispatch="shard_map"`` (explicit expert parallelism, which no ``--arch``
+selects: build such a config in process) and replicated under the sort
+dispatch. Only rank 0 prints. ``--mesh 1x1`` without a launcher is a mesh
+of one rank without a process group, and computes what one device does.
+Not ported: the pod tier (``--mesh PODxDATAxMODEL`` with pod > 1),
+checkpoints on more than one rank, and the capacity dispatch (``--ffn
+sigma_moe``) on more than one rank, which raises (ROADMAP.md, queue 1
+item 8).
 """
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 import time
 from typing import Dict, List, Optional
@@ -121,49 +140,87 @@ def main(argv: Optional[List[str]] = None, eval_batches: int = 0) -> Dict:
     ap.add_argument("--fail-at-step", type=int, default=-1,
                     help="TESTING: raise at this step to exercise restart")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL, e.g. 2x2: one rank a device, under "
+                         "torch.distributed.run")
     args = ap.parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
-    from ..checkpoint import CheckpointManager
-    from ..common import tree_leaves
-    from ..configs import OptimizerConfig, get_config, reduced
-    from ..data import DataIterator, make_dataset
-    from ..kernels import cvmm as K
-    from ..models import build_model
-    from ..runtime import (StragglerMonitor, init_train_state, make_eval_step,
-                           make_train_step)
+    from .mesh import MESH_AXIS_LAYOUTS, make_mesh
 
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to train on the CPU")
     if args.resume and args.ckpt_dir is None:
         raise SystemExit("--resume needs --ckpt-dir")
-    if args.grad_accum < 1 or args.batch % args.grad_accum:
+    shape = tuple(int(x) for x in args.mesh.split("x"))
+    if len(shape) not in (2, 3):
+        raise SystemExit(f"--mesh {args.mesh}: give DATAxMODEL")
+    if len(shape) == 3 and shape[0] > 1:
+        raise SystemExit(f"--mesh {args.mesh}: the pod tier (pod > 1) is not ported "
+                         "(ROADMAP.md, queue 1 item 8)")
+    ranks = math.prod(shape)
+    if ranks > 1 and args.ckpt_dir is not None:
+        raise SystemExit("--ckpt-dir on more than one rank is not ported (ROADMAP.md, "
+                         "queue 1 item 8)")
+    if args.grad_accum < 1 or args.batch % (args.grad_accum * ranks):
         raise SystemExit(f"--batch {args.batch} does not split into --grad-accum "
-                         f"{args.grad_accum} microbatches")
+                         f"{args.grad_accum} microbatches over {ranks} ranks")
+    started = not dist.is_initialized()
+    mesh = make_mesh(shape, MESH_AXIS_LAYOUTS[len(shape) - 2], device=dev)
+    try:
+        return _train(args, mesh, eval_batches)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, mesh, eval_batches: int) -> Dict:
+    """``main``'s run on ``mesh`` (this rank's part of it)."""
+    import torch
+
+    from ..checkpoint import CheckpointManager
+    from ..common import map_leaves, tree_leaves
+    from ..configs import OptimizerConfig, get_config, reduced
+    from ..convert import is_expert_shard
+    from ..core.dispatch import expert_shards
+    from ..data import DataIterator, make_dataset
+    from ..kernels import cvmm as K
+    from ..models import build_model
+    from ..runtime import (StragglerMonitor, init_train_state, make_eval_step,
+                           make_train_step)
+
+    dev = mesh.device
+    log = print if mesh.index == 0 else (lambda *a, **k: None)
     cfg = reduced(args.arch) if args.reduced else get_config(args.arch)
-    model = build_model(cfg, ffn=args.ffn, remat=args.remat)
+    model = build_model(cfg, ffn=args.ffn, remat=args.remat,
+                        ep_degree=mesh.shape["model"])
     cfg = model.cfg
     opt_cfg = OptimizerConfig(lr=args.lr, total_steps=args.steps,
                               grad_accum=args.grad_accum,
                               grad_compression=args.grad_compression)
-    train_step = make_train_step(model, opt_cfg, grad_accum=args.grad_accum)
+    train_step = make_train_step(model, opt_cfg, grad_accum=args.grad_accum, mesh=mesh)
     ds = make_dataset(args.data, cfg.vocab_size)
     it = DataIterator(ds, args.batch, args.seq + 1, seed=args.seed)
-    # The memories of one microbatch: the reference sizes them for the
-    # whole batch, on which its scan over microbatches fails.
+    # The memories of one microbatch (this rank's rows of it): the reference
+    # sizes them for the whole batch, on which its scan over microbatches
+    # fails.
     state = init_train_state(model, torch.Generator(device=dev).manual_seed(args.seed),
                              opt_cfg, use_mems=bool(cfg.xl_memory),
-                             batch=args.batch // args.grad_accum, device=dev)
+                             batch=args.batch // args.grad_accum // mesh.size, device=dev,
+                             mesh=mesh)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-    print(f"[train] {cfg.name}{' (reduced)' if args.reduced else ''}: "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}, ffn {cfg.ffn.kind}, "
-          f"{n_params / 1e6:.2f} M "
-          f"params, {model.dtype} compute; batch {args.batch} x seq {args.seq} "
-          f"on {dev}; data {args.data}; grad accum {args.grad_accum}, compression "
-          f"{args.grad_compression}, remat {args.remat}", flush=True)
+    shards = expert_shards(cfg.ffn, mesh)
+    n_params = sum(tree_leaves(map_leaves(state["params"], lambda path, p: p.numel() * (
+        shards if is_expert_shard(path) else 1))))
+    log(f"[train] {cfg.name}{' (reduced)' if args.reduced else ''}: "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, ffn {cfg.ffn.kind}, "
+        f"{n_params / 1e6:.2f} M "
+        f"params, {model.dtype} compute; batch {args.batch} x seq {args.seq} "
+        f"on {dev}; mesh {mesh.shape}; data {args.data}; grad accum {args.grad_accum}, "
+        f"compression {args.grad_compression}, remat {args.remat}", flush=True)
 
     mgr = (CheckpointManager(args.ckpt_dir, keep=args.keep)
            if args.ckpt_dir is not None else None)
@@ -175,8 +232,8 @@ def main(argv: Optional[List[str]] = None, eval_batches: int = 0) -> Dict:
             del restored
             start_step = int(extra["step"])
             it.restore(extra["data"])
-            print(f"[resume] restored step {start_step}", flush=True)
-    mon = StragglerMonitor(on_straggler=lambda s, dt, mu: print(
+            log(f"[resume] restored step {start_step}", flush=True)
+    mon = StragglerMonitor(on_straggler=lambda s, dt, mu: log(
         f"[straggler] step {s}: {dt:.3f}s vs mean {mu:.3f}s", flush=True))
 
     losses, times, launches, dropped = [], [], [], []
@@ -195,9 +252,9 @@ def main(argv: Optional[List[str]] = None, eval_batches: int = 0) -> Dict:
             launches.append({k: K.LAUNCHES[k] - before[k] for k in before})
             dropped.append(metrics["moe_dropped"])
             if step % args.log_every == 0 or step == args.steps - 1:
-                print(f"step {step:5d} loss {loss:.4f} lr {metrics['lr']:.2e} "
-                      f"gnorm {float(metrics['grad_norm']):.3f} {times[-1]:.3f}s",
-                      flush=True)
+                log(f"step {step:5d} loss {loss:.4f} lr {metrics['lr']:.2e} "
+                    f"gnorm {float(metrics['grad_norm']):.3f} {times[-1]:.3f}s",
+                    flush=True)
             if mgr is not None and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
                 mgr.save(step + 1, _checkpoint_tree(state, gen),
                          extra={"data": it.state()})
@@ -213,24 +270,24 @@ def main(argv: Optional[List[str]] = None, eval_batches: int = 0) -> Dict:
     total = time.perf_counter() - t_start
     tokens = args.batch * args.seq
     n_steps = args.steps - start_step
-    print(f"[done] {n_steps} steps in {total:.1f}s; "
-          f"{tokens * n_steps / max(total, 1e-9):.0f} tokens/s; "
-          f"stragglers={len(mon.flagged)}", flush=True)
+    log(f"[done] {n_steps} steps in {total:.1f}s; "
+        f"{tokens * n_steps / max(total, 1e-9):.0f} tokens/s; "
+        f"stragglers={len(mon.flagged)}", flush=True)
     if any(any(v.values()) for v in launches):
-        print(f"[launches per step] {launches[-1]}", flush=True)
+        log(f"[launches per step] {launches[-1]}", flush=True)
     out = {"losses": losses, "step_s": times, "launches": launches,
            "moe_dropped": [float(x) for x in dropped],
            "tokens_per_step": tokens, "n_params": n_params, "start_step": start_step,
            "stragglers": list(mon.flagged), "state": state}
     if eval_batches:
-        eval_step = make_eval_step(model)
+        eval_step = make_eval_step(model, mesh)
         held_out = DataIterator(ds, args.batch, args.seq + 1, seed=args.seed + 1000)
         evals = [eval_step(state["params"], {"tokens": torch.as_tensor(
             held_out.next()["tokens"], device=dev)}) for _ in range(eval_batches)]
         out["eval_losses"] = [float(loss) for loss, _ in evals]
         out["eval_ce"] = [float(m["ce"]) for _, m in evals]
-        print(f"[eval] {eval_batches} held-out batches: loss {out['eval_losses']}",
-              flush=True)
+        log(f"[eval] {eval_batches} held-out batches: loss {out['eval_losses']}",
+            flush=True)
     return out
 
 

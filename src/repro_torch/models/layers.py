@@ -7,6 +7,7 @@ from typing import Dict, Optional
 import torch
 
 from ..configs.base import ModelConfig
+from ..sharding import global_draw
 
 
 def init_norm(cfg: ModelConfig, d: int, dtype=torch.float32,
@@ -59,10 +60,13 @@ def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
             train: bool) -> torch.Tensor:
     """Inverted dropout with draws from ``gen``; the identity outside
     training, at rate 0, or without a generator (as the reference without
-    an rng). The draws differ from JAX's for the same seed."""
+    an rng). The draws differ from JAX's for the same seed. Under a mesh
+    the mask is drawn for the global batch and this rank's rows kept
+    (``sharding.global_draw``)."""
     if not train or rate <= 0.0 or gen is None:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    keep = global_draw(lambda shape: torch.rand(shape, generator=gen, device=x.device),
+                       x.shape) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 

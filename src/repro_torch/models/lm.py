@@ -61,11 +61,13 @@ def _check_paged(cfg: ModelConfig) -> None:
 
 
 class LM:
-    def __init__(self, cfg: ModelConfig, *, remat: str = "none"):
+    def __init__(self, cfg: ModelConfig, *, remat: str = "none", ep_degree: int = 0):
         """``remat``: "none", "full" or "dots", the training forward's
-        recomputation of each block in the backward (``models/stack.py``)."""
+        recomputation of each block in the backward (``models/stack.py``);
+        ``ep_degree``: the expert count is padded to a multiple of it."""
         self.cfg = cfg
         self.remat = remat
+        self.ep_degree = ep_degree
         self.dtype = _DTYPES[cfg.dtype]
         self.param_dtype = _DTYPES[cfg.param_dtype]
         # vocab padded to a multiple of 512, as in the reference; padded
@@ -79,8 +81,8 @@ class LM:
         p = {"emb": init_embedding(gen, self.vocab_padded, cfg.d_model,
                                    self.param_dtype, device),
              "final_norm": init_norm(cfg, cfg.d_model, self.param_dtype, device),
-             "stack": init_stack(gen, cfg, self.param_dtype, device=device,
-                                 cross=cfg.is_encoder_decoder)}
+             "stack": init_stack(gen, cfg, self.param_dtype, ep_degree=self.ep_degree,
+                                 device=device, cross=cfg.is_encoder_decoder)}
         if not cfg.tie_embeddings:
             p["unembed"] = init_embedding(gen, cfg.d_model, self.vocab_padded,
                                           self.param_dtype,

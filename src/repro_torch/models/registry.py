@@ -10,13 +10,14 @@ from .lm import LM
 
 
 def build_model(cfg_or_name: Union[str, ModelConfig], *, remat: str = "none",
-                ffn: Optional[str] = None, **overrides) -> LM:
+                ep_degree: int = 0, ffn: Optional[str] = None, **overrides) -> LM:
     """The LM of an arch name or config, with ``overrides`` applied and, if
     ``ffn`` names another kind, its FFN swapped by the reference's widths
     rule (parameter-matched: G * N_E = d_ff for sigma_moe, with the
     reference's capacity dispatch). ``remat`` is the reference's ("none",
-    "full" or "dots"). Its sequence-parallel, chunked-CE and
-    expert-parallel options are not ported."""
+    "full" or "dots"); ``ep_degree`` (the mesh's "model" axis) pads the
+    expert count to a multiple of it. Its sequence-parallel and chunked-CE
+    options are not ported."""
     cfg = (get_config(cfg_or_name) if isinstance(cfg_or_name, str)
            else cfg_or_name)
     if overrides:
@@ -43,4 +44,4 @@ def build_model(cfg_or_name: Union[str, ModelConfig], *, remat: str = "none",
                                          activation=cfg.ffn.activation or "relu"))
         else:
             raise ValueError(f"cannot swap ffn to {ffn}")
-    return LM(cfg, remat=remat)
+    return LM(cfg, remat=remat, ep_degree=ep_degree)

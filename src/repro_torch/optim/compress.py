@@ -14,9 +14,12 @@ holds them as a list), so its "per-tensor" int8 scale spans every layer
 of a segment: the port gives all slices of one stacked leaf
 (``stacked_path``) one scale.
 
-The reference's pod tier (``compress_pod_grads``: per-pod residuals and
-the quantized cross-pod mean) needs a device mesh with a 'pod' axis; it
-raises here until the port has one (ROADMAP queue 1 item 8).
+Under a mesh the train step compresses the gradients after their
+all-reduce, as here; an expert leaf sharded over "model" takes its int8
+scale from the whole leaf (the shards' absmax, max-reduced over the
+"model" group). The reference's pod tier (``compress_pod_grads``: per-pod
+residuals and the quantized cross-pod mean, for a mesh with a 'pod' axis
+of more than one) is not ported and raises (ROADMAP.md, queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from ..common import map_leaves, map_trees
+from ..common import map_leaves, map_trees, tree_leaves
+from ..sharding import all_reduce_
 
 # The expert-parameter subtree: the sparse-FFN tables that dominate the
 # gradient's bytes under expert parallelism (the pod tier compresses only
@@ -32,8 +36,8 @@ from ..common import map_leaves, map_trees
 EXPERT_PARAM_NAMES = frozenset(
     {"we1", "we1g", "we2", "keys_a", "keys_b", "values"})
 
-_POD_TIER = ("the pod tier of gradient compression needs a device mesh with a "
-             "'pod' axis, which is not ported yet (ROADMAP queue 1 item 8)")
+_POD_TIER = ("the pod tier of gradient compression (a mesh with a 'pod' axis of "
+             "more than one) is not ported yet (ROADMAP.md, queue 1 item 8)")
 
 
 def is_expert_leaf(path) -> bool:
@@ -78,20 +82,33 @@ def _roundtrip(g: torch.Tensor, mode: str,
 
 
 @torch.no_grad()
-def compress_grads(grads, err_state, mode: str) -> Tuple[Any, Any]:
+def compress_grads(grads, err_state, mode: str, sharded=None,
+                   group=None) -> Tuple[Any, Any]:
     """Returns (the gradients as seen after the wire, in their own dtype,
     the new residuals): per leaf, wire = Q(g + e) and e' = (g + e) - wire,
-    with int8's scale shared by the slices of one stacked leaf."""
+    with int8's scale shared by the slices of one stacked leaf. ``sharded``
+    (a tree of bools like ``grads``) marks the leaves that are one rank's
+    shard of a leaf split over ``group``; their int8 scale is the whole
+    leaf's."""
     if mode == "none":
         return grads, err_state
     total = map_trees(lambda g, e: g.float() + e, grads, err_state)
     absmax = {}
     if mode == "int8":
+        marks = iter(tree_leaves(sharded)) if sharded is not None else None
+        split = {}
+
         def reduce(path, t):
             key = stacked_path(path)
             top = torch.max(torch.abs(t))
             absmax[key] = top if key not in absmax else torch.maximum(absmax[key], top)
+            if marks is not None and next(marks):
+                split[key] = True
         map_leaves(total, reduce)
+        if split and group is not None:
+            tops = all_reduce_(torch.stack([absmax[key] for key in split]), group, "max")
+            for i, key in enumerate(split):
+                absmax[key] = tops[i]
     wires = map_leaves(total, lambda path, t: _roundtrip(t, mode,
                                                          absmax.get(stacked_path(path))))
     return (map_trees(lambda w, g: w.to(g.dtype), wires, grads),

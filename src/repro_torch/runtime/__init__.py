@@ -1,5 +1,5 @@
-"""Training runtime: the loss, the single-device train and eval steps, and
-the straggler monitor."""
+"""Training runtime: the loss, the train and eval steps (on one device or
+a mesh of ranks), and the straggler monitor."""
 from .loss import chunked_cross_entropy
 from .monitor import StragglerMonitor
 from .steps import (init_train_state, make_decode_step, make_eval_step,

@@ -1,7 +1,9 @@
 """Cross-entropy with bounded logits memory (the reference's
 ``runtime/loss.py``): the mean next-token CE over valid positions, either
 in one pass or over token chunks whose logits are recomputed in backward
-(``torch.utils.checkpoint``), so only one chunk's logits are alive."""
+(``torch.utils.checkpoint``), so only one chunk's logits are alive.
+Under a mesh the mean is over the global batch's valid positions (its
+token count summed over the ranks)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -11,6 +13,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..common import round_up
+from ..sharding import all_reduce_sum, current_mesh, pmean
 
 
 def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -36,7 +39,7 @@ def chunked_cross_entropy(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
                           n_valid_vocab: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean next-token CE. h (B,S,D), w (D,V), labels (B,S). Returns
-    (mean, n_tok)."""
+    (mean, n_tok), over the global batch under a mesh."""
     d = h.shape[-1]
     hf = h.reshape(-1, d)
     lf = labels.reshape(-1)
@@ -58,4 +61,11 @@ def chunked_cross_entropy(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
                                        softcap, n_valid_vocab,
                                        use_reentrant=False)
     n_tok = torch.sum(mf)
-    return total / torch.clamp(n_tok, min=1.0), n_tok
+    mesh = current_mesh()
+    if mesh is None:
+        return total / torch.clamp(n_tok, min=1.0), n_tok
+    # R times this rank's share, averaged over the ranks (the gradient
+    # convention of sharding/collectives.py)
+    group = mesh.group()
+    n_tok = all_reduce_sum(n_tok, group)
+    return pmean(total * mesh.size / torch.clamp(n_tok, min=1.0), group), n_tok

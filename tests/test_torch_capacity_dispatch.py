@@ -21,6 +21,7 @@ from repro.core.routing import SelectionInfo as JaxSelectionInfo
 from repro_torch.configs import moe_ffn
 from repro_torch.core import dispatch, moe
 from repro_torch.core.routing import SelectionInfo
+from repro_torch.sharding import Mesh, mesh_context
 
 N, D, E, G, K = 48, 32, 6, 16, 2
 
@@ -84,7 +85,9 @@ def test_einsum_path_matches_reference(factor, glu):
 def test_einsum_equals_sort_without_drops_and_shard_map_raises():
     """apply_moe with dispatch "einsum" at capacity factor 16 (nothing
     drops) equals the dropless sort dispatch, outputs and gradients;
-    "shard_map" raises and names ROADMAP queue 1 item 8."""
+    "shard_map" with no mesh is the capacity path, as in the reference, and
+    on a mesh of two ranks with no "model" axis it falls back to the
+    capacity path, which raises there and names ROADMAP queue 1 item 8."""
     cfg = moe_ffn(8, G, K, dispatch="sort", n_shared_experts=1)
     params = moe.init_moe(torch.Generator().manual_seed(1), D, cfg, 4, device="cpu")
     x = torch.from_numpy(np.random.default_rng(2).standard_normal((4, 10, D)).astype(
@@ -104,5 +107,11 @@ def test_einsum_equals_sort_without_drops_and_shard_map_raises():
     for name in gs:
         np.testing.assert_allclose(ge[name].numpy(), gs[name].numpy(), atol=2e-4,
                                    rtol=2e-4, err_msg=name)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    roomy = dataclasses.replace(cfg, dispatch="einsum", capacity_factor=16.0)
+    with torch.no_grad():
+        ysm, auxsm = moe.apply_moe(params, x, dataclasses.replace(roomy, dispatch="shard_map"))
+        ycap, _ = moe.apply_moe(params, x, roomy)
+    assert torch.equal(ysm, ycap) and float(auxsm["moe_dropped"]) == 0.0
+    two_ranks = Mesh(axis_names=("data",), shape={"data": 2}, coords={"data": 0})
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"), mesh_context(two_ranks):
         moe.apply_moe(params, x, dataclasses.replace(cfg, dispatch="shard_map"))
